@@ -1,0 +1,85 @@
+"""The port's CLI: it never loads jax, and its error paths exit 1."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from zeldovich_tpu_torch import cli
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).parent.parent
+ASSETS = REPO / "zeldovich_tpu" / "assets"
+
+
+def _write_par(path, outdir, ppd=16, **over):
+    d = dict(
+        BoxSize=100.0, NP=ppd**3, CPD=8, ICFormat="RVZel",
+        InitialConditionsDirectory=str(outdir), InitialRedshift=49.0,
+        ZD_Seed=1234, ZD_NumBlock=2, ZD_Pk_scale=1.0, ZD_Pk_norm=8.0,
+        ZD_Pk_sigma=0.02, ZD_Pk_smooth=0.0,
+        ZD_Pk_filename=str(ASSETS / "wmap1new.pow"), ZD_Version=2,
+        ZD_qPLT=1, ZD_PLT_filename=str(ASSETS / "eigmodes128"),
+    )
+    d.update(over)
+    path.write_text("".join(
+        f'{k} = "{v}"\n' if isinstance(v, str) else f"{k} = {v}\n"
+        for k, v in d.items()
+    ))
+    return path
+
+
+def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic")
+    code = (
+        "import sys\n"
+        "import zeldovich_tpu_torch\n"
+        "from zeldovich_tpu_torch.cli import main\n"
+        f"rc = main([{str(par)!r}, '--device', 'cpu'])\n"
+        "jax = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "print('JAXMODS', jax)\n"
+        "sys.exit(rc if not jax else 3)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "JAXMODS []" in proc.stdout
+    assert len(list((tmp_path / "ic").glob("ic_*"))) == 8
+    assert "zeldovich took" in proc.stderr
+
+
+def test_f_nl_exits_1_naming_the_roadmap(tmp_path, capsys):
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic", ZD_f_NL=10.0, ZD_qPLT=0)
+    assert cli.main([str(par), "--device", "cpu"]) == 1
+    assert "ROADMAP A7" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "flags,item",
+    [(["--part", "1"], "A8"), (["--sharded"], "A10"), (["--out-of-core"], "A9"),
+     (["--distributed"], "A10"), (["--profile", "d"], "A11"),
+     (["--dtype", "df64"], "A6")],
+)
+def test_unported_flags_exit_1(tmp_path, capsys, flags, item):
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic")
+    assert cli.main([str(par), "--device", "cpu", *flags]) == 1
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_cuda_without_a_card_exits_1(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic")
+    assert cli.main([str(par)]) == 1  # --device cuda is the default
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "ic").exists()  # nothing ran on the CPU instead
+
+
+def test_missing_parameter_file_exits_1(tmp_path, capsys):
+    assert cli.main([str(tmp_path / "nope.par"), "--device", "cpu"]) == 1
+    assert "not found" in capsys.readouterr().err

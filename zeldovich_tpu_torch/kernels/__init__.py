@@ -1,0 +1,145 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+The sources under ``zeldovich_tpu_torch/csrc`` are compiled with nvcc for
+``sm_90a`` into one shared library with a plain C interface, at first use,
+into ``zeldovich_tpu_torch/_build/`` (rebuilt when a source is newer than
+the library), and loaded with ctypes.  Nothing is built when this module
+is imported, and nothing here falls back: a missing compiler, a failed
+build or a failed launch raises.
+
+Each launch wrapper adds one to its entry of ``launches``; a run reads the
+counts to show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+LIB = BUILD / "libzt_kernels.so"
+LOG = BUILD / "build.log"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+#: kernel name -> number of launches since the last reset_launches()
+launches = {"halfspace_pack_zx": 0, "c2r_y": 0}
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def build(force: bool = False) -> float:
+    """Compile the library if stale; returns the seconds spent compiling."""
+    srcs = _sources()
+    if (not force and LIB.exists()
+            and LIB.stat().st_mtime >= max(s.stat().st_mtime for s in srcs)):
+        return 0.0
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, LIB)
+    return seconds
+
+
+def ptxas_report() -> list[str]:
+    """Per-kernel registers, shared memory and spills from the build log."""
+    if not LOG.exists():
+        return []
+    out, name = [], None
+    for line in LOG.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and ("Used" in line or "spill" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(str(LIB))
+        lib.zt_b1_pack_zx.restype = _I
+        lib.zt_b1_pack_zx.argtypes = [_VP] * 7 + [_I] * 3 + [_F, _F, _I, _VP]
+        lib.zt_b2_c2r_y.restype = _I
+        lib.zt_b2_c2r_y.argtypes = [_VP] * 3 + [_I] * 4 + [_VP]
+        lib.zt_error_string.restype = ctypes.c_char_p
+        lib.zt_error_string.argtypes = [_I]
+        _lib = lib
+    return _lib
+
+
+def _check(lib, rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.zt_error_string(rc).decode()}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch_pack_zx(planes64, mzx64, czx64, pk, coefs, tw, out, n, narray,
+                   flags, fund, fund2):
+    """B1: synthesis + packing + ky=0 fixup + z/x inverse DFTs into out."""
+    lib = library()
+    rc = lib.zt_b1_pack_zx(
+        planes64.data_ptr(), mzx64.data_ptr(), czx64.data_ptr(),
+        pk.data_ptr(), None if coefs is None else coefs.data_ptr(),
+        tw.data_ptr(), out.data_ptr(), n, narray, flags, fund, fund2,
+        out.device.index, _stream(out),
+    )
+    _check(lib, rc, "halfspace_pack_zx")
+    launches["halfspace_pack_zx"] += 1
+
+
+def launch_c2r_y(g, tw, out, n, narray, has_nyq):
+    """B2: half-spectrum c2r inverse DFT along y into out."""
+    lib = library()
+    rc = lib.zt_b2_c2r_y(
+        g.data_ptr(), tw.data_ptr(), out.data_ptr(), n, narray,
+        int(has_nyq), out.device.index, _stream(out),
+    )
+    _check(lib, rc, "c2r_y")
+    launches["c2r_y"] += 1

@@ -1,0 +1,68 @@
+"""B2: half-spectrum c2r inverse DFT along y.
+
+Port of ``zeldovich_tpu/ops/pallas_fft.py::c2r_y_folded_pallas``.  Input
+``(narray, 2, 2, ky, Z, X)`` = (array, +/- packing, re/im, ky, z, x) with
+z and x already transformed, where S+- = D~ +- i F~ for two real fields;
+output ``(narray, 2, n, Z, X)`` with re = D and im = F, unnormalized,
+sign +1.  ``n`` is explicit: ky is n/2 + 1 (Nyquist row present) or n/2
+(Nyquist-free), never inferred from parity, which is ambiguous for
+n = 2 (mod 4).
+
+On a CUDA tensor it launches the hand-written kernel (csrc/c2r.cu) or
+raises; on a CPU tensor it runs the plain version, which follows
+``mmfft.c2r_y_pair``: 2D~ = S+ + S-, 2iF~ = S+ - S-, then
+``torch.fft.irfft(..., norm="forward")`` along y.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .synth import check_kernel_size, twiddles
+
+
+def _nyquist(spm, n: int) -> bool:
+    ky = spm.shape[-3]
+    if n % 2 or ky not in (n // 2, n // 2 + 1) or spm.shape[-5:-3] != (2, 2):
+        raise ValueError(
+            f"c2r_y: want (..., 2, 2, {n // 2} or {n // 2 + 1}, Z, X) for "
+            f"n = {n}, got {tuple(spm.shape)}"
+        )
+    return ky == n // 2 + 1
+
+
+def c2r_y_plain(spm, n: int):
+    """Plain version: two irfft along y; DC and Nyquist imaginary parts
+    are dropped explicitly (c2r transforms are not bound to ignore them)."""
+    has_nyq = _nyquist(spm, n)
+    spr, spi = spm[..., 0, 0, :, :, :], spm[..., 0, 1, :, :, :]
+    smr, smi = spm[..., 1, 0, :, :, :], spm[..., 1, 1, :, :, :]
+    D = torch.complex(spr + smr, spi + smi) * 0.5
+    F = torch.complex(spi - smi, smr - spr) * 0.5
+    edge = [0, n // 2] if has_nyq else [0]
+    for a in (D, F):
+        a.imag[..., edge, :, :] = 0.0
+    d = torch.fft.irfft(D, n=n, dim=-3, norm="forward")
+    del D
+    f = torch.fft.irfft(F, n=n, dim=-3, norm="forward")
+    return torch.stack([d, f], dim=-4)
+
+
+def c2r_y(spm, n: int):
+    """(narray, 2, 2, ky, Z, X) -> (narray, 2, n, Z, X)."""
+    has_nyq = _nyquist(spm, n)
+    if spm.device.type == "cpu":
+        return c2r_y_plain(spm, n)
+    if spm.device.type != "cuda":
+        raise ValueError(f"c2r_y: no kernel for device {spm.device}")
+    check_kernel_size(n)
+    if spm.dim() != 6 or spm.shape[-2:] != (n, n):
+        raise ValueError(f"c2r_y kernel: want (narray, 2, 2, ky, {n}, {n}), "
+                         f"got {tuple(spm.shape)}")
+    if spm.dtype != torch.float32 or not spm.is_contiguous():
+        raise ValueError(f"c2r_y kernel: want contiguous float32, got {spm.dtype}")
+    narray = spm.shape[0]
+    out = torch.empty((narray, 2, n, n, n), dtype=torch.float32, device=spm.device)
+    kernels.launch_c2r_y(spm, twiddles(n, spm.device), out, n, narray, has_nyq)
+    return out

@@ -1,0 +1,103 @@
+"""B1: fused half-spectrum synthesis + packing + ky=0 fixup + z/x inverse DFTs.
+
+Port of ``zeldovich_tpu/ops/pallas_synth.py::halfspace_pack_zx_pallas``.
+``halfspace_pack_zx`` returns the z/x-transformed packed half-spectrum
+``(narray, 2, 2, half, Z, X)`` without the always-zero y-Nyquist row; the
+c2r y-transform (ops/c2r.py) is told ``n`` explicitly.
+
+On a CUDA tensor it launches the hand-written kernel (csrc/synth.cu) or
+raises; on a CPU tensor it runs the plain version,
+``synthesize_half_pair`` followed by an unnormalized sign +1 complex FFT
+over (z, x).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .modes import SynthConfig, SynthTables
+from .modes_real import synthesize_half_pair
+
+_FIXED_POWER, _JUST_DENSITY, _QPLT = 1, 2, 4
+
+
+@lru_cache(maxsize=16)
+def twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """(n/2, 2) float32 table of exp(+2 pi i j / n), from float64."""
+    w = np.exp(2j * np.pi * np.arange(n // 2) / n)
+    tw = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+    return torch.from_numpy(tw).to(device)
+
+
+def check_kernel_size(n: int):
+    """The kernels take power-of-two lengths in [16, 2048]."""
+    if n & (n - 1) or not 16 <= n <= 2048:
+        raise ValueError(
+            f"ppd {n}: the CUDA kernels take power-of-two ppd in [16, 2048] "
+            "(other sizes: ROADMAP A12)"
+        )
+
+
+def halfspace_pack_zx_plain(cfg: SynthConfig, tables: SynthTables, pk_eff,
+                            plt_coefs=None):
+    """Plain version: synthesize_half_pair, drop the Nyquist row, ifft2."""
+    half = cfg.ppd // 2
+    spm = synthesize_half_pair(cfg, tables, pk_eff.dtype, pk_eff, plt_coefs)
+    c = torch.complex(spm[:, :, 0, :half], spm[:, :, 1, :half])
+    del spm
+    c = torch.fft.ifft2(c, norm="forward")  # sign +1, no 1/N
+    return torch.stack([c.real, c.imag], dim=2)
+
+
+def halfspace_pack_zx(cfg: SynthConfig, tables: SynthTables, pk_eff,
+                      plt_coefs=None):
+    """Transformed packed half-spectrum (narray, 2, 2, half, Z, X).
+
+    pk_eff: (half, Z, X) pk_effective; plt_coefs: (4, half, Z, X) PLT
+    coefficient planes (modes_real.plt_coef_fields), required under PLT.
+    """
+    dev = pk_eff.device
+    if dev.type == "cpu":
+        return halfspace_pack_zx_plain(cfg, tables, pk_eff, plt_coefs)
+    if dev.type != "cuda":
+        raise ValueError(f"halfspace_pack_zx: no kernel for device {dev}")
+    n, half = cfg.ppd, cfg.ppd // 2
+    check_kernel_size(n)
+    if pk_eff.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel is float32, got {pk_eff.dtype}")
+    if cfg.qPLT and plt_coefs is None:
+        raise ValueError("PLT needs the coefficient planes (plt_coef_fields)")
+    coefs = plt_coefs if cfg.qPLT else None
+    want = {
+        "pk_eff": (pk_eff, (half, n, n), torch.float32),
+        "planes64": (tables.planes64, (half, 2), torch.int64),
+        "mzx64": (tables.mzx64, (2, n, n), torch.int64),
+        "czx64": (tables.czx64, (2, n, n), torch.int64),
+    }
+    if coefs is not None:
+        want["plt_coefs"] = (coefs, (4, half, n, n), torch.float32)
+    for name, (t, shape, dtype) in want.items():
+        if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want contiguous {dtype} {shape} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    flags = (
+        (_FIXED_POWER if cfg.fixed_power else 0)
+        | (_JUST_DENSITY if cfg.just_density else 0)
+        | (_QPLT if coefs is not None else 0)
+    )
+    out = torch.empty((cfg.narray, 2, 2, half, n, n), dtype=torch.float32,
+                      device=dev)
+    fund = np.float32(cfg.fundamental)
+    kernels.launch_pack_zx(
+        tables.planes64, tables.mzx64, tables.czx64, pk_eff, coefs,
+        twiddles(n, dev), out, n, cfg.narray, flags, float(fund),
+        float(fund * fund),
+    )
+    return out
