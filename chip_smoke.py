@@ -8,22 +8,34 @@ nvcc.  Phases, each printed on its own lines; any failure raises and the
 script exits non-zero without printing a result:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions; build
-   the kernels from csrc/ and print ptxas registers, shared memory, spills;
+   the kernels from csrc/ (one nvcc per source, in parallel) and print
+   ptxas registers, shared memory, spills;
 2. kernel B1 (halfspace_pack_zx) against its plain version on the card, at
    128^3 with example.par's PLT configuration and at 512^3 plain float32;
 3. kernel B2 (c2r_y) against its plain version on phase 2's outputs;
-4. the forward step (B1 + B2) timed against the plain route (torch ops +
-   torch.fft) with CUDA events, in turns plain, kernel, kernel, plain:
-   512^3 plain, 512^3 PLT, and 1024^3 plain (kernel route, peak memory);
-5. end to end through zeldovich_tpu_torch.cli.main: example.par (128^3
-   PLT, RVZel; every particle held against the same run through the plain
-   route), a 256^3 plain run and a 512^3 PLT run, with the launch counters
-   reset just before and read just after.
+4. kernel B4 (halfspace_boxmuller) against its plain version at 512^3;
+   zx_dft (B6/B7) against torch.fft on a full (2, 2, 512, 512, 512) grid
+   and at n = 1024 and 2048 on a small batch; y_dft (B8) on the full
+   512^3 grid and a (2, 2, 512, 8, 512) z-slab; both signs;
+5. the half-spectrum forward step (B1 + B2) timed against the plain route
+   (torch ops + torch.fft) with CUDA events, in turns plain, kernel,
+   kernel, plain: 512^3 plain, 512^3 PLT, and 1024^3 plain (kernel route,
+   peak memory);
+6. the full-grid forward step (B4, zx, y) timed the same way: 512^3 f_NL,
+   512^3 f_NL + PLT, 512^3 CornerModes with k_cutoff = 2, a device
+   profile of one 512^3 f_NL step, and 1024^3 f_NL (kernel route, peak
+   memory);
+7. end to end through zeldovich_tpu_torch.cli.main, the launch counters
+   reset just before each run and read just after: example.par (128^3
+   PLT, RVZel) and example.par's keys with f_NL = 30 (both held particle
+   by particle against the same run through the plain route), 256^3
+   plain and PLT, 512^3 f_NL, 256^3 CornerModes with k_cutoff = 2, and
+   128^3 ZD_Version=1.
 
 The last two lines are the kernel JSON summary and the result line
 {"ok": true, "device": {...}}.  No JAX is imported: the port reuses only
 the JAX package's jax-free host modules (parameters, power spectrum, host
-pcg64, the ic_* writer).
+pcg64, the v1 MT19937 stream, the ic_* writer).
 """
 
 from __future__ import annotations
@@ -45,6 +57,12 @@ EXAMPLE = ROOT / "example.par"
 ASSETS = ROOT / "zeldovich_tpu" / "assets"
 
 B1_TOL, B2_TOL, ZERO_TOL, PARTICLE_TOL = 1e-5, 2e-6, 1e-6, 1e-5
+B4_TOL, DFT_TOL = 1e-5, 1e-5
+
+#: the f_NL configuration: local non-Gaussianity of a Planck-like cosmology
+FNL = dict(ZD_f_NL="30.0", ZD_n_s="0.96", Omega_M="0.3")
+CORNER = dict(ZD_CornerModes="1", ZD_k_cutoff="2.0")
+V1 = dict(ZD_Version="1")
 
 
 def say(*a):
@@ -68,7 +86,7 @@ def cpd_for(ppd: int) -> int:
     return ppd * 375 // 128  # example.par's CPD : ppd ratio
 
 
-def par_text(ppd: int, outdir, plt: bool, seed: int = 12346) -> str:
+def par_text(ppd: int, outdir, plt: bool, seed: int = 12346, **extra) -> str:
     """example.par's keys at another size, with absolute paths."""
     keys = {}
     for line in EXAMPLE.read_text().splitlines():
@@ -80,19 +98,19 @@ def par_text(ppd: int, outdir, plt: bool, seed: int = 12346) -> str:
         InitialConditionsDirectory=f'"{outdir}"',
         ZD_Pk_filename=f'"{ASSETS / "wmap1new.pow"}"',
         ZD_PLT_filename=f'"{ASSETS / "eigmodes128"}"',
-        ZD_qPLT=str(int(plt)),
+        ZD_qPLT=str(int(plt)), **extra,
     )
     return "".join(f"{k} = {v}\n" for k, v in keys.items())
 
 
-def model_for(ppd, plt, device="cuda"):
+def model_for(ppd, plt, device="cuda", **extra):
     import torch
 
     from zeldovich_tpu_torch.models.pipeline import Parameters, Zeldovich
 
     tmp = Path(tempfile.mkdtemp(prefix="zt_model_"))
     try:
-        (tmp / "m.par").write_text(par_text(ppd, tmp / "ic", plt))
+        (tmp / "m.par").write_text(par_text(ppd, tmp / "ic", plt, **extra))
         param = Parameters.from_file(tmp / "m.par")
     finally:
         shutil.rmtree(tmp)
@@ -118,6 +136,19 @@ def compare(k, p, tol, what):
     return err
 
 
+def counted(name, fn):
+    """fn() with a check that it launched kernel `name` exactly once."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+
+    before = kernels.launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    check(kernels.launches[name] == before + 1, f"{name} launch counter did not move")
+    return out
+
+
 def phase_card():
     import torch
 
@@ -140,7 +171,6 @@ def phase_kernels():
     """Phases 2 and 3: B1 and B2 against their plain versions."""
     import torch
 
-    from zeldovich_tpu_torch import kernels
     from zeldovich_tpu_torch.ops.c2r import c2r_y, c2r_y_plain
     from zeldovich_tpu_torch.ops.synth import (
         halfspace_pack_zx, halfspace_pack_zx_plain,
@@ -152,26 +182,81 @@ def phase_kernels():
         cfg, tables, pk, coefs = m.cfg, m.tables, m.pk_eff, m.plt_coefs
         tag = f"{ppd}^3 {'PLT' if plt else 'plain'}"
         say(f"== phase 2: B1 vs plain, {tag}")
-        before = kernels.launches["halfspace_pack_zx"]
-        k = halfspace_pack_zx(cfg, tables, pk, coefs)
-        torch.cuda.synchronize()
-        check(kernels.launches["halfspace_pack_zx"] == before + 1,
-              "B1 launch counter did not move")
+        k = counted("halfspace_pack_zx",
+                    lambda: halfspace_pack_zx(cfg, tables, pk, coefs))
         p = halfspace_pack_zx_plain(cfg, tables, pk, coefs)
         check(k.shape == p.shape, f"B1 shape {k.shape} != {p.shape}")
         errs[("b1", ppd)] = compare(k, p, B1_TOL, f"B1 {tag} {tuple(k.shape)}")
         del p
         say(f"== phase 3: B2 vs plain, {tag}")
-        before = kernels.launches["c2r_y"]
-        xk = c2r_y(k, ppd)
-        torch.cuda.synchronize()
-        check(kernels.launches["c2r_y"] == before + 1,
-              "B2 launch counter did not move")
+        xk = counted("c2r_y", lambda: c2r_y(k, ppd))
         xp = c2r_y_plain(k, ppd)
         errs[("b2", ppd)] = compare(xk, xp, B2_TOL, f"B2 {tag} {tuple(xk.shape)}")
         del k, xk, xp, m
         torch.cuda.empty_cache()
     return errs
+
+
+def phase_fullgrid_kernels():
+    """Phase 4: B4, zx and y against their plain versions; returns the
+    errors and the kernel/plain ms at 512^3."""
+    import torch
+
+    from zeldovich_tpu_torch.ops.boxmuller import (
+        halfspace_boxmuller, halfspace_boxmuller_plain,
+    )
+    from zeldovich_tpu_torch.ops.fft import y_dft, y_dft_plain, zx_dft, zx_dft_plain
+
+    errs, times = {}, {}
+    say("== phase 4: B4 vs plain, 512^3 f32")
+    m = model_for(512, False)
+    for fixed in (False, True):
+        a = (m.tables, m.pk_eff, fixed)
+        k = counted("halfspace_boxmuller", lambda: halfspace_boxmuller(*a))
+        p = halfspace_boxmuller_plain(*a)
+        for j, part in enumerate(("re", "im")):
+            err = compare(k[j], p[j], B4_TOL, f"B4 fixed_power={fixed} D_{part} "
+                                               f"{tuple(k[j].shape)}")
+            if not fixed:
+                errs["b4"] = max(errs.get("b4", 0.0), err)
+        del k, p
+    a = (m.tables, m.pk_eff, False)
+    times["b4"] = _turns(lambda: halfspace_boxmuller(*a),
+                         lambda: halfspace_boxmuller_plain(*a))
+    say(f"  B4 512^3 f32: kernel {times['b4'][0]:.3f} ms, plain {times['b4'][1]:.3f} ms")
+    del m, a
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    cases = [
+        ("zx", zx_dft, zx_dft_plain, (2, 2, 512, 512, 512)),
+        ("zx", zx_dft, zx_dft_plain, (1, 2, 4, 1024, 1024)),
+        ("zx", zx_dft, zx_dft_plain, (1, 2, 2, 2048, 2048)),
+        ("y", y_dft, y_dft_plain, (2, 2, 512, 512, 512)),
+        ("y", y_dft, y_dft_plain, (2, 2, 512, 8, 512)),
+    ]
+    for name, fn, plain, shape in cases:
+        say(f"== phase 4: {name}_dft vs torch.fft, {shape}")
+        x = torch.randn(shape, device="cuda", generator=gen)
+        for sign in (+1, -1):
+            k = counted(f"{name}_dft", lambda: fn(x, sign))
+            p = plain(x, sign)
+            err = compare(k, p, DFT_TOL, f"{name}_dft sign {sign:+d}")
+            if shape[-3:] == (512, 512, 512):
+                errs[name] = max(errs.get(name, 0.0), err)
+            del k, p
+        t = _turns(lambda: fn(x, +1), lambda: plain(x, +1))
+        say(f"  {name}_dft {shape} f32: kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms")
+        if shape[-3:] == (512, 512, 512):
+            times[name] = t
+            inplace = x.clone()
+            check(counted(f"{name}_dft", lambda: fn(inplace, +1, inplace)) is inplace,
+                  "in-place call returned another tensor")
+            compare(inplace, plain(x, +1), DFT_TOL, f"{name}_dft in place")
+            del inplace
+        del x
+        torch.cuda.empty_cache()
+    return errs, times
 
 
 def _time(fn):
@@ -201,6 +286,20 @@ def _turns(kernel_fn, plain_fn, rounds=3):
     return statistics.median(ks), statistics.median(ps)
 
 
+def _peak(step, ppd, what):
+    """Median ms of 3 kernel-route steps and the peak device memory."""
+    import torch
+
+    _time(step)  # warm-up
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = sorted(_time(step) for _ in range(3))[1]
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  {what}: kernel {ms:.3f} ms ({ppd**3 / ms / 1e3:.1f} Mpart/s), peak "
+        f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB of setup fields)")
+    return ms, peak
+
+
 def phase_timing():
     import torch
 
@@ -209,7 +308,7 @@ def phase_timing():
         halfspace_pack_zx, halfspace_pack_zx_plain,
     )
 
-    say(f"== phase 4: forward step timing on {smi()}")
+    say(f"== phase 5: half-spectrum forward step timing on {smi()}")
     per_kernel = {}
     for ppd, plt in ((512, False), (512, True)):
         m = model_for(ppd, plt)
@@ -232,18 +331,56 @@ def phase_timing():
 
     m = model_for(1024, False)
     a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
-    step = lambda: c2r_y(halfspace_pack_zx(*a), 1024)  # noqa: E731
-    _time(step)  # warm-up
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ms = [_time(step) for _ in range(3)]
-    peak = torch.cuda.max_memory_allocated()
-    say(f"  1024^3 plain f32 step: kernel {sorted(ms)[1]:.3f} ms "
-        f"({1024**3 / sorted(ms)[1] / 1e3:.1f} Mpart/s), peak "
-        f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB of setup fields)")
+    _peak(lambda: c2r_y(halfspace_pack_zx(*a), 1024), 1024, "1024^3 plain f32 step")
     del m, a
     torch.cuda.empty_cache()
     return per_kernel
+
+
+def _profile(step, what):
+    """Device time by kernel over one step (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = []  # the device's own entries (kernels, copies), not the ops
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    say(f"  {what} profile: {total:.3f} ms of device time in {len(rows)} kernels")
+    for ms, count, key in rows[:12]:
+        say(f"    {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<5d} {key[:90]}")
+
+
+def phase_fullgrid_timing():
+    import torch
+
+    say(f"== phase 6: full-grid forward step timing on {smi()}")
+    for tag, plt, extra in (("f_NL", False, FNL), ("f_NL PLT", True, FNL),
+                            ("CornerModes k_cutoff=2", False, CORNER)):
+        m = model_for(512, plt, **extra)
+        _ = (m.pk_eff, m.plt_coefs)
+        k, p = _turns(lambda: m.xspace_pair(), lambda: m.xspace_pair(plain=True))
+        say(f"  512^3 {tag} f32 step: kernel {k:.3f} ms, plain {p:.3f} ms; "
+            f"{512**3 / k / 1e3:.1f} vs {512**3 / p / 1e3:.1f} Mpart/s")
+        if tag == "f_NL":
+            _profile(lambda: m.xspace_pair(), "512^3 f_NL kernel route")
+            _peak(lambda: m.xspace_pair(), 512, "512^3 f_NL f32 step")
+        del m
+        torch.cuda.empty_cache()
+
+    m = model_for(1024, False, **FNL)
+    _ = m.pk_eff
+    _peak(lambda: m.xspace_pair(), 1024, "1024^3 f_NL f32 step")
+    del m
+    torch.cuda.empty_cache()
 
 
 def _run_cli(par: Path) -> dict:
@@ -255,8 +392,9 @@ def _run_cli(par: Path) -> dict:
         rc = cli.main([str(par)])
     text = err.getvalue()
     for line in text.splitlines():
-        if "took" in line or "rms" in line or "displacements" in line:
-            say("  " + line)
+        if any(w in line for w in ("took", "rms", "displacements", "resident")) \
+                or re.match(r"\s*(Model|Mode|Inverse|Output)", line):
+            say("  " + line.strip())
     check(rc == 0, f"cli exited {rc}:\n{text}")
     rms = float(re.search(r"pixels is (\S+)", text).group(1))
     disp = re.search(r"displacements are \((\S+), (\S+), (\S+)\)", text).groups()
@@ -276,23 +414,61 @@ def _ic_files(d: Path, ppd: int, cpd: int):
     return files
 
 
-def phase_end_to_end():
+def _against_plain(tmp: Path, name: str, par: Path, x_plain):
+    """Every particle of run `name` against x_plain through the same writer."""
     import numpy as np
+
+    from zeldovich_tpu_torch.models.pipeline import OutputWriter, Parameters
+    from zeldovich_tpu_torch.utils.streamio import stream_xspace
+
+    say(f"-- {name} through the plain route, particle by particle")
+    param = Parameters.from_file(par)
+    param.output_dir = str(tmp / f"{name}_plain")
+    (tmp / f"{name}_plain").mkdir()
+    writer = OutputWriter(param)
+    with contextlib.redirect_stderr(io.StringIO()):
+        stream_xspace(x_plain, writer)
+    files = _ic_files(tmp / name, 128, cpd_for(128))
+    worst = {"displ": 0.0, "vel": 0.0}
+    for f in files:
+        # the writer's RVZel record layout, as read_particles reads it
+        got = np.fromfile(f, dtype=writer.dtype)
+        want = np.fromfile(tmp / f"{name}_plain" / f.name, dtype=writer.dtype)
+        for c in ("i", "j", "k"):
+            check(np.array_equal(got[c], want[c]), f"{f.name} {c} differs")
+        for c in ("displ", "vel"):
+            scale = float(np.abs(want[c]).max())
+            err = float(np.abs(got[c] - want[c]).max())
+            worst[c] = max(worst[c], err / scale)
+    say(f"  worst |kernel - plain| / max: displ {worst['displ']:.3e}, "
+        f"vel {worst['vel']:.3e} (tol {PARTICLE_TOL:g})")
+    check(max(worst.values()) <= PARTICLE_TOL, f"{name}: particles differ")
+
+
+HALF = ("halfspace_pack_zx", "c2r_y")
+TRANSFORMS = ("zx_dft", "y_dft")
+FULL = ("halfspace_boxmuller", *TRANSFORMS)
+
+
+def phase_end_to_end():
     import torch
 
     from zeldovich_tpu_torch import kernels
-    from zeldovich_tpu_torch.models.pipeline import OutputWriter, Parameters
-    from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
-    from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx_plain
-    from zeldovich_tpu_torch.utils.streamio import stream_xspace
 
-    say("== phase 5: end to end through zeldovich_tpu_torch.cli.main")
+    say("== phase 7: end to end through zeldovich_tpu_torch.cli.main")
     tmp = Path(tempfile.mkdtemp(prefix="zt_smoke_"))
+    runs = (  # name, ppd, PLT, extra keys, the kernels it must launch
+        ("example", 128, True, {}, HALF),
+        ("fnl_plt128", 128, True, FNL, FULL),
+        ("plain256", 256, False, {}, HALF),
+        ("plt256", 256, True, {}, HALF),
+        ("fnl512", 512, False, FNL, FULL),
+        ("corner256", 256, False, CORNER, FULL),
+        ("v1_128", 128, False, V1, TRANSFORMS),  # v1 draws on the host
+    )
     try:
-        runs = {}
-        kernels.reset_launches()
-        for name, ppd, plt in (("example", 128, True), ("plain256", 256, False),
-                               ("plt512", 512, True)):
+        total = {k: 0 for k in kernels.launches}
+        for name, ppd, plt, extra, want in runs:
             par = tmp / f"{name}.par"
             if name == "example":
                 text = EXAMPLE.read_text()
@@ -302,45 +478,37 @@ def phase_end_to_end():
                               rf'\1"{ROOT}/zeldovich_tpu/', text)
                 par.write_text(text)
             else:
-                par.write_text(par_text(ppd, tmp / name, plt))
-            say(f"-- {name}: {ppd}^3 {'PLT' if plt else 'plain'}")
-            runs[name] = _run_cli(par)
+                par.write_text(par_text(ppd, tmp / name, plt, **extra))
+            say(f"-- {name}: {ppd}^3 {'PLT' if plt else 'plain'} {extra or ''}")
+            kernels.reset_launches()
+            _run_cli(par)
+            launches = dict(kernels.launches)
+            say(f"  launches: {launches}")
+            for k in want:
+                check(launches[k] >= 1, f"{name}: kernel {k} never launched")
+            for k in set(HALF + FULL) - set(want):
+                check(launches[k] == 0, f"{name}: kernel {k} launched off its path")
+            for k, v in launches.items():
+                total[k] += v
             _ic_files(tmp / name, ppd, cpd_for(ppd))
-            if name != "example":
-                shutil.rmtree(tmp / name)
-        launches = dict(kernels.launches)
-        say(f"  launches during the runs: {launches}")
-        for k, v in launches.items():
-            check(v >= 1, f"kernel {k} never launched on the main path")
+            if name == "example":
+                from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
+                from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx_plain
 
-        say("-- example.par through the plain route, particle by particle")
-        param = Parameters.from_file(tmp / "example.par")
-        param.output_dir = str(tmp / "plain")
-        (tmp / "plain").mkdir()
-        m = model_for(128, True)
-        x = c2r_y_plain(halfspace_pack_zx_plain(m.cfg, m.tables, m.pk_eff,
-                                                m.plt_coefs), 128)
-        writer = OutputWriter(param)
-        with contextlib.redirect_stderr(io.StringIO()):
-            stream_xspace(x, writer)
-        files = _ic_files(tmp / "example", 128, cpd_for(128))
-        worst = {"displ": 0.0, "vel": 0.0}
-        for f in files:
-            # the writer's RVZel record layout, as read_particles reads it
-            got = np.fromfile(f, dtype=writer.dtype)
-            want = np.fromfile(tmp / "plain" / f.name, dtype=writer.dtype)
-            for c in ("i", "j", "k"):
-                check(np.array_equal(got[c], want[c]), f"{f.name} {c} differs")
-            for c in ("displ", "vel"):
-                scale = float(np.abs(want[c]).max())
-                err = float(np.abs(got[c] - want[c]).max())
-                worst[c] = max(worst[c], err / scale)
-        say(f"  worst |kernel - plain| / max: displ {worst['displ']:.3e}, "
-            f"vel {worst['vel']:.3e} (tol {PARTICLE_TOL:g})")
-        check(max(worst.values()) <= PARTICLE_TOL, "particles differ")
-        del x, m
-        torch.cuda.empty_cache()
-        return launches
+                m = model_for(128, True)
+                x = c2r_y_plain(halfspace_pack_zx_plain(
+                    m.cfg, m.tables, m.pk_eff, m.plt_coefs), 128)
+                _against_plain(tmp, name, par, x)
+                del x, m
+            elif name == "fnl_plt128":
+                m = model_for(128, True, **FNL)
+                x = m.xspace_pair(plain=True)
+                _against_plain(tmp, name, par, x)
+                del x, m
+            shutil.rmtree(tmp / name)
+            torch.cuda.empty_cache()
+        say(f"  launches over the runs: {total}")
+        return total
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -359,25 +527,34 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_card()
     errs = phase_kernels()
+    full_errs, full_ms = phase_fullgrid_kernels()
     per_kernel = phase_timing()
+    phase_fullgrid_timing()
     launches = phase_end_to_end()
     card = smi()
+
+    def entry(name, source, replaces, err, ms, **more):
+        return {"name": name, "route": "cuda",
+                "source": f"zeldovich_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1], **more}
+
     summary = {"kernels": [
-        {"name": "halfspace_pack_zx", "route": "cuda",
-         "source": "zeldovich_tpu_torch/csrc/synth.cu",
-         "replaces": "zeldovich_tpu/ops/pallas_synth.py:946",
-         "launches": launches["halfspace_pack_zx"],
-         "max_abs_err": errs[("b1", 512)],
-         "ms": per_kernel["b1"][0], "plain_ms": per_kernel["b1"][1]},
-        {"name": "c2r_y", "route": "cuda",
-         "source": "zeldovich_tpu_torch/csrc/c2r.cu",
-         "replaces": "zeldovich_tpu/ops/pallas_fft.py:700",
-         "launches": launches["c2r_y"],
-         "max_abs_err": errs[("b2", 512)],
-         "ms": per_kernel["b2"][0], "plain_ms": per_kernel["b2"][1]},
+        entry("halfspace_pack_zx", "synth.cu", "zeldovich_tpu/ops/pallas_synth.py:946",
+              errs[("b1", 512)], per_kernel["b1"]),
+        entry("c2r_y", "c2r.cu", "zeldovich_tpu/ops/pallas_fft.py:700",
+              errs[("b2", 512)], per_kernel["b2"]),
+        entry("halfspace_boxmuller", "boxmuller.cu",
+              "zeldovich_tpu/ops/pallas_synth.py:546", full_errs["b4"], full_ms["b4"]),
+        entry("zx_dft", "fft_axis.cu", "zeldovich_tpu/ops/pallas_fft.py:305",
+              full_errs["zx"], full_ms["zx"],
+              also_replaces="zeldovich_tpu/ops/pallas_fft.py:374"),
+        entry("y_dft", "fft_axis.cu", "zeldovich_tpu/ops/pallas_fft.py:437",
+              full_errs["y"], full_ms["y"]),
     ]}
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s "
-        "(max_abs_err and ms at 512^3 plain f32)")
+        "(max_abs_err and ms at 512^3 f32: B1/B2 the plain half step, B4 the "
+        "plain configuration's half space, zx/y a (2, 2, 512, 512, 512) grid)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"ok": True, "device": {

@@ -54,10 +54,28 @@ def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
     assert "zeldovich took" in proc.stderr
 
 
-def test_f_nl_exits_1_naming_the_roadmap(tmp_path, capsys):
-    par = _write_par(tmp_path / "p.par", tmp_path / "ic", ZD_f_NL=10.0, ZD_qPLT=0)
-    assert cli.main([str(par), "--device", "cpu"]) == 1
-    assert "ROADMAP A7" in capsys.readouterr().err
+FNL = dict(ZD_f_NL=10.0, ZD_n_s=0.96, Omega_M=0.3)
+
+
+def test_f_nl_runs_on_the_cpu(tmp_path, capsys):
+    """An f_NL .par runs the full-grid path (the JAX package's fallback)."""
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic", ZD_qPLT=0, **FNL)
+    assert cli.main([str(par), "--device", "cpu"]) == 0
+    assert len(list((tmp_path / "ic").glob("ic_*"))) == 8
+    assert "zeldovich took" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("over,narrays", [
+    (dict(ZD_qPLT=0), 2), (dict(ZD_qPLT=0, **FNL), 3), (dict(ZD_qPLT=1, **FNL), 5),
+])
+def test_memory_plan_counts_the_phi_grid(tmp_path, capsys, over, narrays):
+    """The memory-plan line counts narray + 1 arrays under f_NL, as the
+    JAX CLI does: the phi grid lives beside the k-space arrays."""
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic", **over)
+    assert cli.main([str(par), "--device", "cpu"]) == 0
+    gib = (16 / 1024.0) ** 3 * narrays * 8
+    assert (f"Device-resident k-space state: {gib:5.3f} GiB "
+            f"({narrays} complex arrays, float32)") in capsys.readouterr().err
 
 
 @pytest.mark.parametrize(

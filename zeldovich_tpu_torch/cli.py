@@ -1,10 +1,12 @@
 """Command-line entry point: ``python -m zeldovich_tpu_torch <param_file>``.
 
-The main path of ``zeldovich_tpu/cli.py`` on one CUDA device: reads the
-parameter file, reports the memory plan, runs mode synthesis and the
-inverse transforms through the hand-written kernels, streams the particle
-output, then prints the physics QA statistics and throughput, with the
-same phases, timers, messages and exit codes.
+The in-core path of ``zeldovich_tpu/cli.py`` on one CUDA device: reads
+the parameter file, reports the memory plan, runs mode synthesis and the
+inverse transforms through the hand-written kernels (the half-spectrum
+step, or the full-grid step for f_NL, ZD_Version=1 and CornerModes with
+k_cutoff != 1), streams the particle output, then prints the physics QA
+statistics and throughput, with the same phases, timers, messages and
+exit codes.
 
   --device cuda (default) runs on the card and exits 1 when there is none;
   --device cpu runs the plain tensor-op versions (for tests and checks).
@@ -89,10 +91,12 @@ def main(argv=None):
 
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     itemsize = 16 if args.dtype == "float64" else 8
-    gib = (param.ppd / 1024.0) ** 3 * param.narray * itemsize
+    # f_NL holds the phi grid beside the k-space arrays
+    mem_narray = param.narray + (1 if param.f_NL != 0 else 0)
+    gib = (param.ppd / 1024.0) ** 3 * mem_narray * itemsize
     print(
         f"Device-resident k-space state: {gib:5.3f} GiB "
-        f"({param.narray} complex arrays, {args.dtype})",
+        f"({mem_narray} complex arrays, {args.dtype})",
         file=sys.stderr,
     )
     if param.k_cutoff != 1:
@@ -107,14 +111,6 @@ def main(argv=None):
     with timers.phase("Model setup (P(k), RNG tables, eigenmodes)"):
         model = Zeldovich(param, dtype=dtype, device=args.device)
         sync()
-    if not model.half_exact:
-        print(
-            "This configuration (f_NL, ZD_Version=1 or CornerModes with "
-            "k_cutoff != 1) is not ported yet: ROADMAP A7; use python -m "
-            "zeldovich_tpu",
-            file=sys.stderr,
-        )
-        return 1
     setup_output_dir(param)
 
     with timers.phase("Mode synthesis (+ f_NL phi pass)"):
@@ -124,6 +120,8 @@ def main(argv=None):
         sync()
 
     with timers.phase("Inverse FFT"):
+        # the half-spectrum step, or (f_NL, ZD_Version=1, CornerModes with
+        # k_cutoff != 1) the full-grid step with its phi pass
         x = model.xspace_half_pair()
         sync()
 

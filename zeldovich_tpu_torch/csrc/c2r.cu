@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(256) c2r_y_kernel(const float* __restrict__ g,
     cols[zt::bitrev((unsigned)k, logn) * tx + xx] = v;
   }
   __syncthreads();
-  zt::fft_inverse_smem<true>(cols, logn, logtx, 1, tx, tw);
+  zt::fft_smem<true>(cols, logn, logtx, 1, tx, tw);
   // out[a, reim, y, z, x]
   float* ore = out + (size_t)(2 * a) * nn * n + (size_t)z * n + x0;
   float* oim = ore + nn * n;

@@ -1,11 +1,12 @@
 // Shared-memory radix-2 FFT and launch helpers for the zeldovich_tpu_torch
-// kernels (csrc/synth.cu, csrc/c2r.cu).
+// kernels (csrc/synth.cu, csrc/c2r.cu, csrc/fft_axis.cu).
 //
-// The transforms are the FFTW-backward convention of the JAX package:
-// sign +1, no 1/N.  Lengths are powers of two.  Twiddles come from a table
-// w[j] = exp(+2 pi i j / n), j in [0, n/2), computed in double precision
-// on the host and rounded once to float, so the float32 error of a length-n
-// transform stays near 1e-7 * log2(n).
+// The transforms are unnormalized (no 1/N), in the FFTW sign convention of
+// the JAX package; the sign is the twiddle table's.  Lengths are powers of
+// two.  Twiddles come from a table w[j] = exp(sign 2 pi i j / n), j in
+// [0, n/2), computed in double precision on the host and rounded once to
+// float, so the float32 error of a length-n transform stays near
+// 1e-7 * log2(n).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,17 +18,24 @@ __device__ __forceinline__ unsigned bitrev(unsigned v, int logn) {
   return __brev(v) >> (32 - logn);
 }
 
-// In-place inverse DFT of `nbatch` sequences of length n = 2^logn held in
+// Shared-memory slot of element q.  PAD leaves one float2 free after every
+// 16: bit-reversed stores of consecutive row elements (multiples of 16
+// apart for n >= 512) then spread over all banks instead of hitting one.
+template <bool PAD>
+__device__ __forceinline__ int slot(int q) {
+  return PAD ? q + (q >> 4) : q;
+}
+
+// In-place DFT of `nbatch` sequences of length n = 2^logn held in
 // shared memory in BIT-REVERSED order: element k of sequence b sits at
-// buf[b * bstride + k * kstride].  Iterative decimation in time; every
-// thread of the block takes part, and the function ends on a barrier.
-// BATCH_FAST maps consecutive threads to consecutive sequences (column
-// layouts, bstride == 1); otherwise to consecutive butterflies of one
-// sequence (row layouts, kstride == 1).  nbatch is a power of two.
-template <bool BATCH_FAST>
-__device__ void fft_inverse_smem(float2* buf, int logn, int lognbatch,
-                                 int bstride, int kstride,
-                                 const float2* __restrict__ tw) {
+// buf[slot<PAD>(b * bstride + k * kstride)].  Iterative decimation in
+// time; every thread of the block takes part, and the function ends on a
+// barrier.  BATCH_FAST maps consecutive threads to consecutive sequences
+// (column layouts, bstride == 1); otherwise to consecutive butterflies of
+// one sequence (row layouts, kstride == 1).  nbatch is a power of two.
+template <bool BATCH_FAST, bool PAD = false>
+__device__ void fft_smem(float2* buf, int logn, int lognbatch, int bstride,
+                         int kstride, const float2* __restrict__ tw) {
   const int lognbf = logn - 1;  // n/2 butterflies per sequence per stage
   const int total = 1 << (lognbf + lognbatch);
   for (int s = 1; s <= logn; ++s) {
@@ -45,8 +53,9 @@ __device__ void fft_inverse_smem(float2* buf, int logn, int lognbatch,
       const int pos = j & (hm - 1);
       const int i1 = ((j >> (s - 1)) << s) + pos;
       const float2 w = __ldg(&tw[pos << twshift]);
-      float2* p1 = buf + b * bstride + i1 * kstride;
-      float2* p2 = p1 + hm * kstride;
+      const int q1 = b * bstride + i1 * kstride;
+      float2* p1 = buf + slot<PAD>(q1);
+      float2* p2 = buf + slot<PAD>(q1 + hm * kstride);
       const float2 a = *p1;
       const float2 c = *p2;
       const float2 wc = make_float2(w.x * c.x - w.y * c.y, w.x * c.y + w.y * c.x);

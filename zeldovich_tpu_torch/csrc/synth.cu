@@ -37,67 +37,12 @@
 // that and wgmma/TMA staging are later work.
 
 #include "fft_smem.cuh"
+#include "pcg.cuh"
 
 namespace {
 
-typedef unsigned long long u64;
-typedef unsigned __int128 u128;
-
-// pcg64 LCG constants (reference pcg_random.hpp:163,169)
-__device__ __forceinline__ u128 pcg_mult() {
-  return ((u128)2549297995355413924ULL << 64) | (u128)4865540595714422341ULL;
-}
-__device__ __forceinline__ u128 pcg_inc() {
-  return ((u128)6364136223846793005ULL << 64) | (u128)1442695040888963407ULL;
-}
-
-__device__ __forceinline__ u128 load_u128(const u64* __restrict__ lo,
-                                          const u64* __restrict__ hi) {
-  return ((u128)__ldg(hi) << 64) | (u128)__ldg(lo);
-}
-
-// XSL-RR output permutation of a 128-bit state -> 64-bit draw.
-__device__ __forceinline__ u64 xsl_rr(u128 s) {
-  const u64 x = (u64)(s >> 64) ^ (u64)s;
-  const unsigned rot = (unsigned)(s >> 122);
-  return (x >> rot) | (x << ((64u - rot) & 63u));
-}
-
-// The JAX package's fast float32 uniform (pcg_device.fast_uniform_f32):
-// ~(r + 1) * 2^-64 in (0, 1 + 2^-32], op for op.  The products are exact
-// (powers of two), so contraction into FMA cannot change the result.
-__device__ __forceinline__ float i32f(unsigned v) {
-  return __int2float_rn((int)(v ^ 0x80000000u));
-}
-__device__ __forceinline__ float fast_uniform(u64 r) {
-  const float a = i32f((unsigned)(r >> 32)) * 0x1p-32f + 0.5f;
-  const float b = i32f((unsigned)r) * 0x1p-64f + 0x1.000002p-33f;
-  return a + b;
-}
-
-// The JAX package's minimax (cos 2 pi T, sin 2 pi T) (pcg_device.sincos_2pi):
-// quadrant reduction with round-half-even (rintf), then one polynomial
-// pair.  Coefficients are the float64 fits rounded once to float.
-__device__ __forceinline__ void sincos_2pi(float T, float* c_out, float* s_out) {
-  const float t = T - rintf(T);
-  const float q = rintf(t + t);
-  const float r = t - q * 0.5f;
-  const float u = r * r;
-  float c = (float)56.240540440829314;
-  float s = (float)39.535813712149924;
-  c = c * u + (float)-85.24010035715638;
-  s = s * u + (float)-76.54965682070578;
-  c = c * u + (float)64.93458164580112;
-  s = s * u + (float)81.6009981926163;
-  c = c * u + (float)-19.739171322478587;
-  s = s * u + (float)-41.34165492934352;
-  c = c * u + (float)0.9999999532476083;
-  s = s * u + (float)6.283185159611168;
-  s = s * r;
-  const float sign = 1.0f - (fabsf(q) + fabsf(q));
-  *c_out = sign * c;
-  *s_out = sign * s;
-}
+using zt::u128;
+using zt::u64;
 
 enum { FIXED_POWER = 1, JUST_DENSITY = 2, QPLT = 4 };
 
@@ -120,19 +65,13 @@ __device__ void mode_packings(const Params& p, int ky, int z, int x, float2* P) 
   const size_t nn = (size_t)n * n;
   const size_t zx = (size_t)z * n + x;
   const size_t idx = (size_t)ky * nn + zx;
-  const u128 m = load_u128(p.mzx + zx, p.mzx + nn + zx);
-  const u128 c = load_u128(p.czx + zx, p.czx + nn + zx);
-  const u128 st = load_u128(p.planes + 2 * ky, p.planes + 2 * ky + 1);
-  // the tables are pre-bumped: s1 is the state at the mode's first draw
-  const u128 s1 = m * st + c;
-  const u128 s2 = s1 * pcg_mult() + pcg_inc();
-  const float R = fast_uniform(xsl_rr(s1));
-  const float T = fast_uniform(xsl_rr(s2));
-  const float pk = __ldg(p.pk + idx);
-  const float amp = (p.flags & FIXED_POWER) ? sqrtf(pk) : sqrtf(-pk * logf(R));
-  float cv, sv;
-  sincos_2pi(T, &cv, &sv);
-  const float Dr = __fmul_rn(amp, cv), Di = __fmul_rn(amp, sv);
+  const u128 m = zt::load_u128(p.mzx + zx, p.mzx + nn + zx);
+  const u128 c = zt::load_u128(p.czx + zx, p.czx + nn + zx);
+  const u128 st = zt::load_u128(p.planes + 2 * ky, p.planes + 2 * ky + 1);
+  // the tables are pre-bumped: m * st + c is the state at the first draw
+  const float2 D = zt::gaussian_mode(m * st + c, __ldg(p.pk + idx),
+                                     p.flags & FIXED_POWER, 1.0f);
+  const float Dr = D.x, Di = D.y;
 
   if (p.flags & JUST_DENSITY) {
     P[0] = make_float2(Dr - 0.0f, Di + 0.0f);
@@ -204,7 +143,7 @@ __global__ void __launch_bounds__(256) pack_x_kernel(Params p) {
     for (int r = 0; r < nrow; ++r) rows[r * n + xr] = P[r];
   }
   __syncthreads();
-  zt::fft_inverse_smem<false>(rows, p.logn, zt::ilog2(nrow), n, 1, p.tw);
+  zt::fft_smem<false>(rows, p.logn, zt::ilog2(nrow), n, 1, p.tw);
   // out[a, pm, reim, ky, z, x]: row r = 2a + pm, re plane then im plane
   const size_t nn = (size_t)n * n;
   const size_t reim_stride = (size_t)half * nn;
@@ -235,7 +174,7 @@ __global__ void __launch_bounds__(256) fft_z_kernel(float* out, const float2* tw
     cols[zt::bitrev((unsigned)z, logn) * tx + xx] = make_float2(re[o], im[o]);
   }
   __syncthreads();
-  zt::fft_inverse_smem<true>(cols, logn, logtx, 1, tx, tw);
+  zt::fft_smem<true>(cols, logn, logtx, 1, tx, tw);
   for (int t = threadIdx.x; t < n * tx; t += blockDim.x) {
     const int z = t >> logtx, xx = t & (tx - 1);
     const size_t o = (size_t)z * n + xx;

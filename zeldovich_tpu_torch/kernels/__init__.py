@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources under ``zeldovich_tpu_torch/csrc`` are compiled with nvcc for
-``sm_90a`` into one shared library with a plain C interface, at first use,
+``sm_90a``, one nvcc process per ``.cu`` file, all started together, and
+linked into one shared library with a plain C interface, at first use,
 into ``zeldovich_tpu_torch/_build/`` (rebuilt when a source is newer than
 the library), and loaded with ctypes.  Nothing is built when this module
 is imported, and nothing here falls back: a missing compiler, a failed
@@ -29,15 +30,14 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 LIB = BUILD / "libzt_kernels.so"
 LOG = BUILD / "build.log"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel name -> number of launches since the last reset_launches()
-launches = {"halfspace_pack_zx": 0, "c2r_y": 0}
+launches = {"halfspace_pack_zx": 0, "c2r_y": 0, "halfspace_boxmuller": 0,
+            "zx_dft": 0, "y_dft": 0}
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 def reset_launches():
@@ -57,25 +57,55 @@ def nvcc_path() -> str:
 
 
 def build(force: bool = False) -> float:
-    """Compile the library if stale; returns the seconds spent compiling."""
+    """Compile the library if stale; returns the seconds spent compiling.
+
+    One nvcc per source, all running at once, then one link; the
+    compilers' output (ptxas register and spill reports) goes to LOG.
+    """
     srcs = _sources()
     if (not force and LIB.exists()
             and LIB.stat().st_mtime >= max(s.stat().st_mtime for s in srcs)):
         return 0.0
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIB)
-    return seconds
+    with tempfile.TemporaryDirectory(dir=BUILD) as work:
+        work = Path(work)
+        jobs, report, failed = [], [], []
+        try:
+            for src in (s for s in srcs if s.suffix == ".cu"):
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"),
+                       str(src)]
+                log = open(work / f"{src.stem}.log", "w+")
+                jobs.append((cmd, log, subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+            for cmd, log, proc in jobs:
+                rc = proc.wait()
+                log.seek(0)
+                text = log.read()
+                report.append(" ".join(cmd) + "\n" + text)
+                if rc != 0:
+                    failed.append(f"{cmd[-1]} ({rc}):\n{text}")
+        finally:
+            for _, log, proc in jobs:  # none outlives the build
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        if not failed:
+            tmp = work / LIB.name
+            cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+                   *[str(work / f"{src.stem}.o")
+                     for src in srcs if src.suffix == ".cu"]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            report.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+        LOG.write_text("\n".join(report))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, LIB)
+    return time.perf_counter() - t0
 
 
 def ptxas_report() -> list[str]:
@@ -105,6 +135,12 @@ def library() -> ctypes.CDLL:
         lib.zt_b1_pack_zx.argtypes = [_VP] * 7 + [_I] * 3 + [_F, _F, _I, _VP]
         lib.zt_b2_c2r_y.restype = _I
         lib.zt_b2_c2r_y.argtypes = [_VP] * 3 + [_I] * 4 + [_VP]
+        lib.zt_b4_boxmuller.restype = _I
+        lib.zt_b4_boxmuller.argtypes = [_VP] * 7 + [_I] * 4 + [_VP]
+        lib.zt_zx_dft.restype = _I
+        lib.zt_zx_dft.argtypes = [_VP] * 3 + [_I, _I, _LL, _I, _VP]
+        lib.zt_y_dft.restype = _I
+        lib.zt_y_dft.argtypes = [_VP] * 3 + [_I, _LL, _LL, _I, _VP]
         lib.zt_error_string.restype = ctypes.c_char_p
         lib.zt_error_string.argtypes = [_I]
         _lib = lib
@@ -143,3 +179,34 @@ def launch_c2r_y(g, tw, out, n, narray, has_nyq):
     )
     _check(lib, rc, "c2r_y")
     launches["c2r_y"] += 1
+
+
+def launch_boxmuller(planes64, mzx64, czx64, pk, live, re, im, n, half,
+                     fixed_power):
+    """B4: draws + Box-Muller over the generated half space into re, im."""
+    lib = library()
+    rc = lib.zt_b4_boxmuller(
+        planes64.data_ptr(), mzx64.data_ptr(), czx64.data_ptr(), pk.data_ptr(),
+        None if live is None else live.data_ptr(), re.data_ptr(), im.data_ptr(),
+        n, half, int(fixed_power), re.device.index, _stream(re),
+    )
+    _check(lib, rc, "halfspace_boxmuller")
+    launches["halfspace_boxmuller"] += 1
+
+
+def launch_zx_dft(pair, out, tw, n, K, batch):
+    """B6/B7: DFT over (z, x) of (batch, 2, K, n, n) pairs into out."""
+    lib = library()
+    rc = lib.zt_zx_dft(pair.data_ptr(), out.data_ptr(), tw.data_ptr(), n, K,
+                       batch, out.device.index, _stream(out))
+    _check(lib, rc, "zx_dft")
+    launches["zx_dft"] += 1
+
+
+def launch_y_dft(pair, out, tw, n, inner, batch):
+    """B8: DFT along y of (batch, 2, n, inner) pairs into out."""
+    lib = library()
+    rc = lib.zt_y_dft(pair.data_ptr(), out.data_ptr(), tw.data_ptr(), n, inner,
+                      batch, out.device.index, _stream(out))
+    _check(lib, rc, "y_dft")
+    launches["y_dft"] += 1

@@ -1,18 +1,22 @@
-"""The in-core half-spectrum pipeline on one device.
+"""The in-core pipeline on one device.
 
-Port of the main path of ``zeldovich_tpu/models/pipeline.py``: parameters
--> P(k) and RNG tables (setup) -> the cached static fields pk_eff and the
-PLT coefficient planes -> the forward step (B1: synthesis + packing +
-z/x transforms, B2: c2r along y) -> streamed particle output + QA report.
+Port of ``zeldovich_tpu/models/pipeline.py``: parameters -> P(k), M(k) and
+RNG tables (setup) -> the cached static fields pk_eff and the PLT
+coefficient planes -> the forward step -> streamed particle output + QA
+report.  The forward step takes one of two routes:
 
-Only configurations whose spectrum is exactly Hermitian run here
-(``half_exact``); the others are ROADMAP A7 and raise.
+* the half spectrum (``half_exact`` configurations): B1 (synthesis +
+  packing + z/x transforms) and B2 (c2r along y);
+* the full grid (f_NL, ZD_Version=1, CornerModes with k_cutoff != 1):
+  B4 draws -> ``synthesize_full_fast_pair`` -> ``ifft3_pair`` (B8 along y,
+  B6/B7 over z and x), with the f_NL phi pass in front.
 """
 
 from __future__ import annotations
 
 import sys
 
+import numpy as np
 import torch
 
 from zeldovich_tpu.utils.output import OutputWriter, setup_output_dir
@@ -21,8 +25,9 @@ from zeldovich_tpu.utils.power import PowerSpectrum, mode_amplitude_tables
 
 from ..ops import plt as plt_ops
 from ..ops.c2r import c2r_y
+from ..ops.mmfft import fft3_pair, ifft3_pair
 from ..ops.modes import SynthConfig, SynthTables
-from ..ops.modes_real import pk_effective, plt_coef_fields
+from ..ops.modes_real import pk_effective, plt_coef_fields, synthesize_full_fast_pair
 from ..ops.synth import halfspace_pack_zx
 
 
@@ -34,15 +39,23 @@ class Zeldovich:
         self.dtype = dtype
         self.device = torch.device(device)
         self.Pk = PowerSpectrum(param)
-        pk_n2, _ = mode_amplitude_tables(self.Pk, param)
+        pk_n2, M_n2 = mode_amplitude_tables(self.Pk, param)
         self.cfg = SynthConfig.from_params(param, self.Pk.fixed_power)
         eig = None
         if param.qPLT:
             print("Using PLT eigenmodes.", file=sys.stderr)
             eig = plt_ops.load_eigmodes(param.resolve_path(param.PLT_filename))
         self.tables = SynthTables.build(
-            param.seed, param.ppd, pk_n2, eig=eig, device=self.device
+            param.seed, param.ppd, pk_n2, M_n2=M_n2, eig=eig, device=self.device
         )
+        self._D_source = None
+        if param.version == 1:
+            # the legacy MT19937 stream, generated on the host (jax-free)
+            from zeldovich_tpu.ops import v1
+
+            D = v1.generate_D_half(param, self.Pk, pk_n2)
+            self._D_source = torch.from_numpy(
+                np.stack([D.real, D.imag])).to(self.device, dtype)
         self._pk_eff = None
         self._plt_coefs = None
 
@@ -78,15 +91,54 @@ class Zeldovich:
         return self._plt_coefs
 
     def xspace_half_pair(self):
-        """The forward step: (narray, 2, Y, Z, X) x-space real pairs."""
+        """The forward step: (narray, 2, Y, Z, X) x-space real pairs.
+
+        Falls back to the full-grid path for the configurations the half
+        spectrum cannot represent, as the JAX package does.
+        """
         if not self.half_exact:
-            raise NotImplementedError(
-                "f_NL, ZD_Version=1 and CornerModes with k_cutoff != 1 are "
-                "not ported yet (ROADMAP A7); run them with the JAX package, "
-                "python -m zeldovich_tpu"
-            )
+            return self.xspace_pair()
         g = halfspace_pack_zx(self.cfg, self.tables, self.pk_eff, self.plt_coefs)
         return c2r_y(g, self.cfg.ppd)
+
+    # -- the full-grid pair path ---------------------------------------
+    # ``plain=True`` runs the plain versions of B4 and the transforms on
+    # any device: the route the kernels are held against on the card.
+    def phi_pass(self, plain: bool = False):
+        """f_NL input pass: phi(k) -> x space -> (phi + f_NL phi^2) / ppd^3
+        -> k space; returns the (2, Y, Z, X) phi(k) pair.
+
+        The inverse transform is unnormalized, so the round trip's 1/ppd^3
+        is folded into the non-linear map (zeldovich.cpp:749-759).  All in
+        place on one full grid; its imaginary plane is the scratch.
+        """
+        p = self.param
+        phi = synthesize_full_fast_pair(
+            self.cfg, self.tables, self.dtype, gen_phi=True, pk_eff=self.pk_eff,
+            D_source=self._D_source, plain=plain,
+        )[0]
+        ifft3_pair(phi, out=phi, plain=plain)
+        x, t = phi[0], phi[1]
+        torch.mul(x, p.f_NL, out=t)
+        t.mul_(x)
+        t.add_(x)
+        t.mul_(1.0 / p.ppd**3)
+        x.copy_(t)
+        t.zero_()
+        return fft3_pair(phi, out=phi, plain=plain)
+
+    def kspace_pair(self, plain: bool = False):
+        """Packed k-space arrays as real pairs: (narray, 2, Y, Z, X)."""
+        phi = self.phi_pass(plain) if self.param.f_NL != 0 else None
+        return synthesize_full_fast_pair(
+            self.cfg, self.tables, self.dtype, phi_pair=phi, pk_eff=self.pk_eff,
+            D_source=self._D_source, plt_coefs=self.plt_coefs, plain=plain,
+        )
+
+    def xspace_pair(self, plain: bool = False):
+        """Full-grid forward step: (narray, 2, Y, Z, X), transformed in place."""
+        k = self.kspace_pair(plain)
+        return ifft3_pair(k, out=k, plain=plain)
 
     def run_pair(self, setup_dir: bool = True) -> OutputWriter:
         """Full run: forward step, streamed output, QA report."""

@@ -127,6 +127,7 @@ class SynthTables:
     czx: tuple  # 4 x (ppd, ppd) precomposed (z, x) increments
     pk_n2: torch.Tensor  # (3*(ppd/2)^2+1,) float64 P(|k|) by integer n2
     eig: torch.Tensor | None  # (ppd_e, ppd_e, ppd_e//2+1, 4) PLT eigenmodes
+    M_n2: torch.Tensor | None = None  # same-indexed f_NL M(k) factor, float64
     # packed 64-bit words for the CUDA kernel: planes (half, 2) and the
     # (z, x) maps (2, ppd, ppd), each [lo64, hi64]
     planes64: torch.Tensor = field(init=False)
@@ -143,7 +144,7 @@ class SynthTables:
         return self.pk_n2.device
 
     @classmethod
-    def build(cls, seed: int, ppd: int, pk_n2: np.ndarray, eig=None,
+    def build(cls, seed: int, ppd: int, pk_n2: np.ndarray, M_n2=None, eig=None,
               device="cpu") -> "SynthTables":
         """Host pcg64 tables (ops/pcg.py) + the (z, x) compose on device."""
         mz, cz = pcg.prebump_axis_tables(
@@ -163,16 +164,19 @@ class SynthTables:
             pk_n2=torch.tensor(np.asarray(pk_n2, np.float64), device=device),
             eig=None if eig is None else torch.tensor(
                 np.asarray(eig, np.float64), device=device),
+            M_n2=None if M_n2 is None else torch.tensor(
+                np.asarray(M_n2, np.float64), device=device),
         )
 
 
 def tables_from_jax(planes, mz, cz, mx, cx, mzx, czx, pk_n2, eig=None,
-                    pk_eff=None, plt_coefs=None, device="cpu"):
+                    pk_eff=None, plt_coefs=None, device="cpu", M_n2=None):
     """The JAX package's setup state, carried across as the port's tensors.
 
     Every table argument is a 4-tuple of u32 limb arrays (the JAX
-    ``SynthTables`` fields, as numpy); ``pk_n2``/``eig`` and the optional
-    ``pk_eff`` (half, Z, X) and ``plt_coefs`` 4-tuple are float arrays.
+    ``SynthTables`` fields, as numpy); ``pk_n2``/``eig``/``M_n2`` and the
+    optional ``pk_eff`` (half, Z, X) and ``plt_coefs`` 4-tuple are float
+    arrays.
     Returns ``(tables, pk_eff, plt_coefs)`` on ``device``, the coefficient
     planes stacked (4, half, Z, X) as ``modes_real.plt_coef_fields``
     returns them (None where the input was None), so tests can feed
@@ -191,7 +195,7 @@ def tables_from_jax(planes, mz, cz, mx, cx, mzx, czx, pk_n2, eig=None,
     tables = SynthTables(
         planes=L(planes), mz=L(mz), cz=L(cz), mx=L(mx), cx=L(cx),
         mzx=L(mzx), czx=L(czx), pk_n2=F(np.asarray(pk_n2, np.float64)),
-        eig=F(eig),
+        eig=F(eig), M_n2=None if M_n2 is None else F(np.asarray(M_n2, np.float64)),
     )
     coefs = None if plt_coefs is None else F(np.stack(plt_coefs))
     return tables, F(pk_eff), coefs

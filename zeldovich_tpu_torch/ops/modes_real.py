@@ -7,11 +7,17 @@ Port of the main-path parts of ``zeldovich_tpu/ops/modes_real.py``:
 * ``plt_coef_fields``: the PLT eigenmode coefficient planes;
 * ``synthesize_half_pair``: the packed half-SPECTRUM
   ``(narray, 2, 2, half+1, Z, X)`` = (array, +/- packing, re/im, ky, Z, X),
-  with the ky=0 self-conjugate fixup and the zero y-Nyquist row.
+  with the ky=0 self-conjugate fixup and the zero y-Nyquist row;
+* ``synthesize_full_fast_pair``: the full k-grid ``(narray, 2, Y, Z, X)``
+  of the configurations the half spectrum cannot represent (f_NL, v1,
+  CornerModes with k_cutoff != 1), from the generated half space by
+  reflection (``assemble_pair``), with ``phi_of_D`` and ``finish_fields``.
 
-These are the plain versions the CUDA kernel of ops/synth.py is held
+``synthesize_half_pair`` and ``draw_planes`` are the plain versions the
+CUDA kernels of ops/synth.py (B1) and ops/boxmuller.py (B4) are held
 against.  Work is chunked over y so the int64 limb temporaries of the
-draw chain stay bounded at 512^3 and above.
+draw chain, and the field temporaries of the full grid, stay bounded at
+512^3 and above.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ def _np_dtype(dtype):
     return np.float32 if dtype == torch.float32 else np.float64
 
 
-def _y_chunk(half: int, ppd: int, max_elems: int) -> int:
+def y_chunk(half: int, ppd: int, max_elems: int) -> int:
     """Largest divisor of half with chunk * ppd^2 <= max_elems (>= 1)."""
     cy = max(1, min(half, max_elems // (ppd * ppd)))
     while half % cy:
@@ -53,7 +59,7 @@ def pk_effective(cfg: SynthConfig, tables: SynthTables, dtype):
     ppd, half = cfg.ppd, cfg.ppd // 2
     dev = tables.device
     out = torch.empty((half, ppd, ppd), dtype=dtype, device=dev)
-    cy = _y_chunk(half, ppd, 1 << 23)
+    cy = y_chunk(half, ppd, 1 << 23)
     for y0 in range(0, half, cy):
         ky, kz, kx, n2 = _wavenumbers(y0, y0 + cy, ppd, dev)
         zero = zero_rules(kx, ky, kz, n2, cfg)
@@ -84,7 +90,7 @@ def plt_coef_fields(cfg: SynthConfig, tables: SynthTables, dtype):
     npf = _np_dtype(dtype)
     dev = tables.device
     out = torch.empty((4, half, ppd, ppd), dtype=dtype, device=dev)
-    cy = _y_chunk(half, ppd, 32 * ppd * ppd)
+    cy = y_chunk(half, ppd, 32 * ppd * ppd)
     fund = float(npf(cfg.fundamental))
     for y0 in range(0, half, cy):
         ky, kz, kx, n2 = _wavenumbers(y0, y0 + cy, ppd, dev)
@@ -103,6 +109,41 @@ def plt_coef_fields(cfg: SynthConfig, tables: SynthTables, dtype):
     return out
 
 
+def draw_planes(tables: SynthTables, y0: int, y1: int, pk, fixed_power: bool,
+                live=None):
+    """D = live * cgauss(pk) on the generated planes [y0, y1): (D_re, D_im).
+
+    Per mode the first-draw state plane[y] * mzx + czx, two XSL-RR draws
+    and Box-Muller against pk (the y-chunk of a (half, Z, X) field), in
+    pk's dtype: the plain version of kernel B4 and the front of B1.
+    """
+    plane = tuple(p[y0:y1, None, None] for p in tables.planes)
+    m = tuple(a[None] for a in tables.mzx)
+    c = tuple(a[None] for a in tables.czx)
+    R, T = pcg_device.uniform_pair_from_affine(plane, m, c, pk.dtype)
+    amp = torch.sqrt(pk) if fixed_power else torch.sqrt(-pk * torch.log(R))
+    if live is not None:
+        amp = live * amp
+    cosv, sinv = pcg_device.sincos_2pi(T)
+    return amp * cosv, amp * sinv
+
+
+def finish_fields(D, cfg: SynthConfig, y0: int, y1: int, coefs=None):
+    """(F, G, H) = c_j * (i D) for D on the generated planes [y0, y1).
+
+    c_j = k_j * fundamental / k^2 (0 at the origin), or under PLT the
+    coefficient planes ``coefs`` (the chunk of plt_coef_fields' cx, cy,
+    cz): the JAX package's _finish_fields expressions.
+    """
+    if coefs is None:
+        dtype = D[0].dtype
+        ky, kz, kx, n2 = _wavenumbers(y0, y1, cfg.ppd, D[0].device)
+        scale = float(_np_dtype(dtype)(cfg.fundamental)) * _inv_k2(n2, cfg, dtype)
+        coefs = tuple(k.to(dtype) * scale for k in (kx, ky, kz))
+    # re = -c * D_im, im = c * D_re
+    return tuple((-c * D[1], c * D[0]) for c in coefs[:3])
+
+
 def _reflect_zx(p):
     """p[..., (n - z) % n, (n - x) % n]."""
     n = p.shape[-1]
@@ -110,16 +151,20 @@ def _reflect_zx(p):
     return p[..., idx[:, None], idx[None, :]]
 
 
+def _plane0_masks(n: int, device):
+    """(Z, X) masks of the ky=0 plane: its in-plane mirror half (z > half,
+    or z = 0 and x > half) and the origin."""
+    half = n // 2
+    z = torch.arange(n, device=device)[:, None]
+    x = torch.arange(n, device=device)[None, :]
+    return (z > half) | ((z == 0) & (x > half)), (z == 0) & (x == 0)
+
+
 def fix_ky0_packed(out):
     """Self-conjugate ky=0 fixup of a packed (narray, 2, 2, ky, Z, X) array,
     in place: on the in-plane mirror half, S+ = conj(reflect(S-)) and
     S- = conj(reflect(S+)); the origin is zeroed (zeldovich.cpp:485-503)."""
-    ppd = out.shape[-1]
-    half = ppd // 2
-    z = torch.arange(ppd, device=out.device)[:, None]
-    x = torch.arange(ppd, device=out.device)[None, :]
-    fixm = (z > half) | ((z == 0) & (x > half))
-    orig = (z == 0) & (x == 0)
+    fixm, orig = _plane0_masks(out.shape[-1], out.device)
     row = out[:, :, :, 0]  # (narray, pm, reim, Z, X)
     refl = _reflect_zx(row.flip(1))  # the opposite packing, reflected
     conj = torch.tensor([1.0, -1.0], dtype=out.dtype, device=out.device)
@@ -152,36 +197,141 @@ def synthesize_half_pair(cfg: SynthConfig, tables: SynthTables, dtype,
         plt_coefs = plt_coef_fields(cfg, tables, dtype)
     narray = cfg.narray
     out = torch.zeros((narray, 2, 2, half + 1, ppd, ppd), dtype=dtype, device=dev)
-    npf = _np_dtype(dtype)
-    fund = float(npf(cfg.fundamental))
-    m = tuple(a[None] for a in tables.mzx)
-    c = tuple(a[None] for a in tables.czx)
-    ny = _y_chunk(half, ppd, 1 << 22)
+    ny = y_chunk(half, ppd, 1 << 22)
     for y0 in range(0, half, ny):
         y1 = y0 + ny
-        plane = tuple(p[y0:y1, None, None] for p in tables.planes)
-        R, T = pcg_device.uniform_pair_from_affine(plane, m, c, dtype)
-        pk = pk_eff[y0:y1]
-        amp = torch.sqrt(pk) if cfg.fixed_power else torch.sqrt(-pk * torch.log(R))
-        cosv, sinv = pcg_device.sincos_2pi(T)
-        D = (amp * cosv, amp * sinv)
+        D = draw_planes(tables, y0, y1, pk_eff[y0:y1], cfg.fixed_power)
         if cfg.just_density:
             zero = torch.zeros_like(D[0])
             _pack_into(out, 0, y0, y1, D, (zero, zero))
             continue
-        if cfg.qPLT:
-            cx, cy, cz, f = (p[y0:y1] for p in plt_coefs)
-        else:
-            ky, kz, kx, n2 = _wavenumbers(y0, y1, ppd, dev)
-            scale = fund * _inv_k2(n2, cfg, dtype)
-            cx, cy, cz = (k.to(dtype) * scale for k in (kx, ky, kz))
-        F = (-cx * D[1], cx * D[0])
-        G = (-cy * D[1], cy * D[0])
-        H = (-cz * D[1], cz * D[0])
+        coefs = plt_coefs[:, y0:y1] if cfg.qPLT else None
+        F, G, H = finish_fields(D, cfg, y0, y1, coefs)
         _pack_into(out, 0, y0, y1, D, F)
         _pack_into(out, 1, y0, y1, G, H)
         if cfg.qPLT:
+            f = coefs[3]
             zero = torch.zeros_like(D[0])
             _pack_into(out, 2, y0, y1, (zero, zero), (F[0] * f, F[1] * f))
             _pack_into(out, 3, y0, y1, (G[0] * f, G[1] * f), (H[0] * f, H[1] * f))
     return fix_ky0_packed(out)
+
+
+def phi_of_D(D, n2, tables: SynthTables):
+    """phi = D / M (the gen_phi pass); zero where M is undefined (origin)."""
+    M = tables.M_n2[n2].to(D[0].dtype)
+    invM = torch.where(n2 == 0, 0.0, 1.0 / torch.where(n2 == 0, 1.0, M))
+    return D[0] * invM, D[1] * invM
+
+
+def _mirror(p):
+    """p[ny-1-y, (n-z) % n, (n-x) % n] of (ny, n, n) planes: one gather."""
+    ny, n = p.shape[0], p.shape[-1]
+    idx = (n - torch.arange(n, device=p.device)) % n
+    yi = torch.arange(ny - 1, -1, -1, device=p.device)
+    return p[yi[:, None, None], idx[None, :, None], idx[None, None, :]]
+
+
+def assemble_pair(out, P, Q, y0: int):
+    """Write the field P + iQ of generated planes [y0, y0+ny) into the full
+    grid ``out`` (2, Y, Z, X).
+
+    P and Q are (re, im) pairs of (ny, Z, X) (Q None for a lone field).
+    Plane y takes S+ = P + iQ; mirror plane n - y takes conj(S-) at the
+    reflected (z, x), S- = P - iQ (the conjugates of both fields packed
+    the same way); on plane 0 the in-plane mirror half (z > half, or z = 0
+    and x > half) takes conj(S-) of plane 0 reflected and the origin is
+    zero; the y-Nyquist plane is zero (the JAX package's _assemble_pair,
+    with the packing done before the reflection: the same values).
+    """
+    ny, n = P[0].shape[0], P[0].shape[-1]
+    half, y1 = n // 2, y0 + ny
+    if Q is None:
+        sp = sm = P
+    else:
+        sp = (P[0] - Q[1], P[1] + Q[0])
+        sm = (P[0] + Q[1], P[1] - Q[0])
+    out[0, y0:y1] = sp[0]
+    out[1, y0:y1] = sp[1]
+    ys = max(y0, 1)  # plane 0 has no mirror plane
+    if ys < y1:
+        out[0, n - y1 + 1:n - ys + 1] = _mirror(sm[0][ys - y0:])
+        out[1, n - y1 + 1:n - ys + 1] = -_mirror(sm[1][ys - y0:])
+    if y0 == 0:
+        fixm, orig = _plane0_masks(n, out.device)
+        for j, sgn in ((0, 1.0), (1, -1.0)):
+            fixed = torch.where(fixm, sgn * _reflect_zx(sm[j][0]), out[j, 0])
+            out[j, 0] = torch.where(orig, 0.0, fixed)
+    if y1 == half:
+        out[:, half] = 0.0
+
+
+def synthesize_full_fast_pair(cfg: SynthConfig, tables: SynthTables, dtype,
+                              gen_phi: bool = False, phi_pair=None, pk_eff=None,
+                              D_source=None, plt_coefs=None, plain: bool = False):
+    """Full k-grid as real pairs via half-space generation + reflection.
+
+    Returns (narray, 2, Y, Z, X), or (1, 2, Y, Z, X) phi(k) with gen_phi.
+    D on the generated half space comes from one of:
+
+    * ``phi_pair`` (2, Y, Z, X), the f_NL input pass (not with gen_phi):
+      D = phi(k) * M(n2), zeroed only at the origin, not by the zero rules
+      (zeldovich.cpp:393-400): the f_NL mode coupling repopulates those
+      modes, so the spectrum is not Hermitian and pk_eff is not used;
+    * ``D_source`` (2, half, Z, X), the host-generated ZD_Version=1 field,
+      with the zero rules applied;
+    * kernel B4 (ops/boxmuller.py) against ``pk_eff`` (zero rules folded).
+
+    The fields and packings are built one y-chunk at a time and written
+    straight into the output, one packed array after another, so no
+    full-grid field temporaries exist.  ``plain=True`` takes B4's plain
+    version on any device.
+    """
+    from .boxmuller import halfspace_boxmuller, halfspace_boxmuller_plain
+
+    ppd, half = cfg.ppd, cfg.ppd // 2
+    dev = tables.device
+    use_phi = phi_pair is not None and not gen_phi
+    if (gen_phi or use_phi) and tables.M_n2 is None:
+        raise ValueError("the f_NL passes need tables.M_n2")
+    Dhalf = None
+    if not use_phi and D_source is None:
+        if pk_eff is None:
+            pk_eff = pk_effective(cfg, tables, dtype)
+        draw = halfspace_boxmuller_plain if plain else halfspace_boxmuller
+        Dhalf = draw(tables, pk_eff, cfg.fixed_power)
+    plt = cfg.qPLT and not gen_phi
+    if plt and plt_coefs is None:
+        plt_coefs = plt_coef_fields(cfg, tables, dtype)
+    narray = 1 if gen_phi else cfg.narray
+    out = torch.empty((narray, 2, ppd, ppd, ppd), dtype=dtype, device=dev)
+    cy = y_chunk(half, ppd, 1 << 22)
+    for y0 in range(0, half, cy):
+        y1 = y0 + cy
+        ky, kz, kx, n2 = _wavenumbers(y0, y1, ppd, dev)
+        if use_phi:
+            M = tables.M_n2[n2].to(dtype)
+            D = (phi_pair[0, y0:y1] * M, phi_pair[1, y0:y1] * M)
+            if y0 == 0:
+                D[0][0, 0, 0] = D[1][0, 0, 0] = 0.0
+        elif D_source is not None:
+            zero = zero_rules(kx, ky, kz, n2, cfg)
+            D = tuple(torch.where(zero, 0.0, D_source[j, y0:y1]) for j in range(2))
+        else:
+            D = (Dhalf[0][y0:y1], Dhalf[1][y0:y1])
+        if gen_phi:
+            assemble_pair(out[0], phi_of_D(D, n2, tables), None, y0)
+            continue
+        if cfg.just_density:
+            assemble_pair(out[0], D, None, y0)
+            continue
+        coefs = plt_coefs[:, y0:y1] if plt else None
+        F, G, H = finish_fields(D, cfg, y0, y1, coefs)
+        assemble_pair(out[0], D, F, y0)
+        assemble_pair(out[1], G, H, y0)
+        if plt:
+            f = coefs[3]
+            zero = torch.zeros_like(D[0])
+            assemble_pair(out[2], (zero, zero), (F[0] * f, F[1] * f), y0)
+            assemble_pair(out[3], (G[0] * f, G[1] * f), (H[0] * f, H[1] * f), y0)
+    return out

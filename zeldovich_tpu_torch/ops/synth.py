@@ -26,9 +26,12 @@ _FIXED_POWER, _JUST_DENSITY, _QPLT = 1, 2, 4
 
 
 @lru_cache(maxsize=16)
-def twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """(n/2, 2) float32 table of exp(+2 pi i j / n), from float64."""
-    w = np.exp(2j * np.pi * np.arange(n // 2) / n)
+def twiddles(n: int, device: torch.device, sign: int = +1) -> torch.Tensor:
+    """(n/2, 2) float32 table of exp(sign 2 pi i j / n), from float64: the
+    shared-memory FFTs transform in the table's sign."""
+    if sign not in (1, -1):
+        raise ValueError(f"sign must be +1 or -1, got {sign}")
+    w = np.exp(sign * 2j * np.pi * np.arange(n // 2) / n)
     tw = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
     return torch.from_numpy(tw).to(device)
 
@@ -40,6 +43,18 @@ def check_kernel_size(n: int):
             f"ppd {n}: the CUDA kernels take power-of-two ppd in [16, 2048] "
             "(other sizes: ROADMAP A12)"
         )
+
+
+def check_operands(want: dict, dev):
+    """Each name -> (tensor, shape, dtype) must be a contiguous tensor of
+    that shape and dtype on dev: what a kernel's pointers assume."""
+    for name, (t, shape, dtype) in want.items():
+        if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want contiguous {dtype} {shape} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
 
 
 def halfspace_pack_zx_plain(cfg: SynthConfig, tables: SynthTables, pk_eff,
@@ -80,13 +95,7 @@ def halfspace_pack_zx(cfg: SynthConfig, tables: SynthTables, pk_eff,
     }
     if coefs is not None:
         want["plt_coefs"] = (coefs, (4, half, n, n), torch.float32)
-    for name, (t, shape, dtype) in want.items():
-        if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: want contiguous {dtype} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    check_operands(want, dev)
     flags = (
         (_FIXED_POWER if cfg.fixed_power else 0)
         | (_JUST_DENSITY if cfg.just_density else 0)
