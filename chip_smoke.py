@@ -25,12 +25,32 @@ script exits non-zero without printing a result:
    512^3 f_NL + PLT, 512^3 CornerModes with k_cutoff = 2, a device
    profile of one 512^3 f_NL step, and 1024^3 f_NL (kernel route, peak
    memory);
-7. end to end through zeldovich_tpu_torch.cli.main, the launch counters
+7. kernel B5 (boxmuller) against its plain version on 512^3 y-slabs of 64
+   rows (the slab synthesis' chunk) in the generated half, across ppd/2
+   and in the mirror half, and the f_NL gen_phi slab synthesis through it
+   against the plain route;
+8. kernel B3 (halfspace_pack) against its plain version at 512^3 plain and
+   128^3 PLT, and the separate-kernel half route (B3, zx, B2) against the
+   fused route (B1, B2) at 512^3;
+9. out of core at size: stage_pass1 at 1024^3 plain (8 slabs of 128
+   rows, a 17.2 GB host stage, in RAM or on disk as `free` and `df` allow)
+   with its device-time share and peak device memory (at 2048^3 too where
+   the host holds its 137 GB stage); pass 2 over that stage in parts
+   (the loop without the writer, one z-slab's gather, H2D, y_dft, D2H
+   and the writer on it); and the device work of one 2048^3
+   pass-1 y-slab and one pass-2 z-slab against the plain route;
+10. end to end through zeldovich_tpu_torch.cli.main, the launch counters
    reset just before each run and read just after: example.par (128^3
    PLT, RVZel) and example.par's keys with f_NL = 30 (both held particle
    by particle against the same run through the plain route), 256^3
-   plain and PLT, 512^3 f_NL, 256^3 CornerModes with k_cutoff = 2, and
-   128^3 ZD_Version=1.
+   plain and PLT, 512^3 f_NL, 256^3 CornerModes with k_cutoff = 2,
+   128^3 ZD_Version=1; --out-of-core at 256^3 plain (RAM stage) and
+   128^3 f_NL + PLT (disk stage), each held particle by particle against
+   its in-core run, and 512^3 f_NL; the separate-kernel half route
+   through the model API (kspace_half_pair -> xspace_half_pair) at 256^3
+   against the fused run; --part 1 then --part 2 at 128^3, in core and
+   out of core, against the one-shot run.  Each run must launch the
+   kernels of its path and no other.
 
 The last two lines are the kernel JSON summary and the result line
 {"ok": true, "device": {...}}.  No JAX is imported: the port reuses only
@@ -58,6 +78,7 @@ ASSETS = ROOT / "zeldovich_tpu" / "assets"
 
 B1_TOL, B2_TOL, ZERO_TOL, PARTICLE_TOL = 1e-5, 2e-6, 1e-6, 1e-5
 B4_TOL, DFT_TOL = 1e-5, 1e-5
+B5_TOL, B3_TOL, ROUTE_TOL = 1e-5, 1e-5, 1e-5
 
 #: the f_NL configuration: local non-Gaussianity of a Planck-like cosmology
 FNL = dict(ZD_f_NL="30.0", ZD_n_s="0.96", Omega_M="0.3")
@@ -383,19 +404,293 @@ def phase_fullgrid_timing():
     torch.cuda.empty_cache()
 
 
-def _run_cli(par: Path) -> dict:
-    """cli.main on a .par; returns the parsed QA statistics."""
+def _same_zeros(k, p, what):
+    """Exactly the same zero entries (the zero rules, the hard zeros)."""
+    import torch
+
+    check(torch.equal(k == 0, p == 0), f"{what}: zero pattern differs")
+
+
+def phase_b5():
+    """Phase 7: B5 against its plain version on the slab synthesis' chunks."""
+    import torch
+
+    from zeldovich_tpu_torch.ops.boxmuller import boxmuller, boxmuller_plain
+    from zeldovich_tpu_torch.ops.modes_real import (
+        draw_operands, slab_chunk, slab_modes, synthesize_pair,
+    )
+
+    say("== phase 7: B5 vs plain, 512^3 y-slabs of 64 rows, f32")
+    m = model_for(512, False)
+    check(slab_chunk(128, 512) == 64, "the slab chunk is not 64 rows at 512^3")
+    err, times = 0.0, {}
+    for y0, where in ((0, "generated half"), (224, "across ppd/2"),
+                      (448, "mirror half")):
+        ops = draw_operands(slab_modes(y0, y0 + 64, 512, "cuda"), m.cfg,
+                            m.tables, torch.float32)
+        for fixed in (False, True):
+            k = counted("boxmuller", lambda: boxmuller(m.tables, *ops, fixed))
+            p = boxmuller_plain(m.tables, *ops, fixed)
+            for j, part in enumerate(("re", "im")):
+                what = f"B5 y0={y0} ({where}) fixed_power={fixed} D_{part}"
+                _same_zeros(k[j], p[j], what)
+                e = compare(k[j], p[j], B5_TOL, f"{what} {tuple(k[j].shape)}")
+                err = max(err, e)
+            del k, p
+        times[y0] = _turns(lambda: boxmuller(m.tables, *ops, False),
+                           lambda: boxmuller_plain(m.tables, *ops, False))
+        say(f"  B5 y0={y0} ({where}) 16.8M modes f32: kernel "
+            f"{times[y0][0]:.3f} ms, plain {times[y0][1]:.3f} ms")
+        del ops
+    del m
+    torch.cuda.empty_cache()
+    mf = model_for(512, False, **FNL)
+    for y0 in (224, 448):
+        a = (y0, 64, mf.cfg, mf.tables, torch.float32)
+        k = counted("boxmuller", lambda: synthesize_pair(*a, gen_phi=True))
+        p = synthesize_pair(*a, gen_phi=True, plain=True)
+        _same_zeros(k, p, f"gen_phi slab y0={y0}")
+        compare(k, p, B5_TOL, f"f_NL gen_phi slab y0={y0} {tuple(k.shape)}")
+        del k, p
+    del mf
+    torch.cuda.empty_cache()
+    return err, times[0]
+
+
+def phase_b3():
+    """Phase 8: B3 against its plain version; the separate-kernel half
+    route against the fused one."""
+    import torch
+
+    from zeldovich_tpu_torch.ops.modes_real import pack_half_raw
+    from zeldovich_tpu_torch.ops.synth import halfspace_pack
+
+    err, ms = 0.0, None
+    for ppd, plt in ((512, False), (128, True)):
+        tag = f"{ppd}^3 {'PLT' if plt else 'plain'} f32"
+        say(f"== phase 8: B3 vs plain, {tag}")
+        m = model_for(ppd, plt)
+        a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
+        k = counted("halfspace_pack", lambda: halfspace_pack(*a))
+        p = pack_half_raw(m.cfg, m.tables, torch.float32, m.pk_eff, m.plt_coefs)
+        check(k.shape == p.shape, f"B3 shape {k.shape} != {p.shape}")
+        _same_zeros(k, p, f"B3 {tag}")
+        e = compare(k, p, B3_TOL, f"B3 {tag} {tuple(k.shape)}")
+        del k, p
+        if ppd != 512:
+            continue
+        err = e
+        ms = _turns(lambda: halfspace_pack(*a),
+                    lambda: pack_half_raw(m.cfg, m.tables, torch.float32,
+                                          m.pk_eff, m.plt_coefs))
+        say(f"  B3 {tag}: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms")
+        sep = m.xspace_half_pair(m.kspace_half_pair())
+        fused = m.xspace_half_pair()
+        compare(sep, fused, ROUTE_TOL, f"separate (B3, zx, B2) vs fused (B1, B2) {tag}")
+        del sep, fused
+        t = _turns(lambda: m.xspace_half_pair(m.kspace_half_pair()),
+                   lambda: m.xspace_half_pair())
+        say(f"  {tag} half step: separate route {t[0]:.3f} ms, fused route "
+            f"{t[1]:.3f} ms")
+        del m, a
+        torch.cuda.empty_cache()
+    return err, ms
+
+
+def _host_space(path) -> tuple[int, int]:
+    """(available host RAM, free bytes of path's file system)."""
+    import os
+
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+    return ram, shutil.disk_usage(path).free
+
+
+def _pass1_at(ppd: int, tmp: Path, backing: str):
+    """stage_pass1 of ppd^3 plain f32 with 2048 MB slabs: prints the wall,
+    the device work of a slab, its share and the peak device memory;
+    returns (model, stage)."""
+    import statistics
+
+    import torch
+
+    from zeldovich_tpu_torch.models.outofcore import OutOfCoreZeldovich
+    from zeldovich_tpu_torch.models.pipeline import Parameters
+
+    (tmp / "m.par").write_text(par_text(ppd, tmp / "ic", False))
+    with contextlib.redirect_stderr(io.StringIO()):
+        m = OutOfCoreZeldovich(Parameters.from_file(tmp / "m.par"),
+                               slab_bytes=2048 << 20, backing=backing,
+                               device="cuda")
+    nslab = ppd // m.slab
+    _time(lambda: m._pass1_slab(0))  # warm-up
+    slab_ms = statistics.median(_time(lambda: m._pass1_slab(y0))
+                                for y0 in (0, nslab // 2 * m.slab, ppd - m.slab))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stage = m.stage_pass1()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  {ppd}^3 plain f32 stage_pass1 ({backing} stage): {wall:.3f} s for "
+        f"{nslab} slabs of {m.slab} rows; device work {slab_ms:.3f} ms a slab "
+        f"(CUDA events, median of 3), {100 * nslab * slab_ms / 1e3 / wall:.1f}% "
+        f"of the wall; peak device memory {peak / 2**30:.2f} GiB "
+        f"({base / 2**30:.2f} GiB of setup tables)")
+    # again into the same stage, its pages now mapped: the difference is
+    # the first touch of a fresh stage
+    t0 = time.perf_counter()
+    m.stage_pass1(stage=stage)
+    say(f"  {ppd}^3 stage_pass1 again into the same stage: "
+        f"{time.perf_counter() - t0:.3f} s")
+    return m, stage
+
+
+def _pass2_at(m, stage):
+    """Pass 2 of a staged plain grid, timed in parts: run()'s loop without
+    the writer (strided host gather into pinned memory, H2D, y_dft, D2H,
+    one slab ahead), one z-slab's parts apart, and the writer on that
+    z-slab."""
+    import numpy as np
+    import torch
+
+    from zeldovich_tpu_torch.models.outofcore import (
+        AsyncSlabWriter, _flush_chunk, _zsel,
+    )
+    from zeldovich_tpu_torch.models.pipeline import OutputWriter, setup_output_dir
+    from zeldovich_tpu_torch.ops.fft import y_dft
+    from zeldovich_tpu_torch.utils.streamio import slabs_to_device, stream_to_host
+
+    ppd, nz = m.param.ppd, m.slab
+    keys = [_zsel(z0, nz) for z0 in range(0, ppd, nz)]
+    finite = []
+    t0 = time.perf_counter()
+    stream_to_host(((sel, y_dft(z, +1, out=z)) for sel, z in slabs_to_device(
+        keys, stage.__getitem__, "cuda")),
+        lambda sel, h: finite.append(bool(np.isfinite(h[:, :, ::97, :, ::97]).all())))
+    wall = time.perf_counter() - t0
+    check(len(finite) == len(keys) and all(finite), "pass 2: non-finite z-slab")
+
+    src = stage[keys[0]]
+    pinned = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+    t0 = time.perf_counter()
+    np.copyto(pinned.numpy(), src)
+    gather = 1e3 * (time.perf_counter() - t0)
+    dev = torch.empty(src.shape, dtype=torch.float32, device="cuda")
+    h2d = _time(lambda: dev.copy_(pinned, non_blocking=True))
+    y = _time(lambda: y_dft(dev, +1, out=dev))
+    d2h = _time(lambda: pinned.copy_(dev, non_blocking=True))
+    setup_output_dir(m.param)
+    aw = AsyncSlabWriter(OutputWriter(m.param))
+    t0 = time.perf_counter()
+    try:
+        _flush_chunk(aw, 0, pinned.numpy(), pair=True)
+    finally:
+        aw.close()
+    write = time.perf_counter() - t0
+    gb, ic_gb = pinned.nbytes / 1e9, nz * ppd * ppd * 32 / 1e9
+    say(f"  {ppd}^3 pass 2 without the writer: {wall:.3f} s for {len(keys)} "
+        f"z-slabs of {nz} planes ({len(keys) * gb / wall:.1f} GB/s of stage)")
+    say(f"  one {gb:.2f} GB z-slab: strided host gather {gather:.3f} ms "
+        f"({gb / gather * 1e3:.1f} GB/s), H2D {h2d:.3f} ms ({gb / h2d * 1e3:.1f} "
+        f"GB/s), y_dft {y:.3f} ms, D2H {d2h:.3f} ms ({gb / d2h * 1e3:.1f} GB/s); "
+        f"the writer on it {write:.3f} s ({ic_gb:.2f} GB of ic_*, "
+        f"{ic_gb / write:.2f} GB/s)")
+    del pinned, dev
+
+
+def phase_outofcore():
+    """Phase 9: out of core at 1024^3 and 2048^3."""
+    import numpy as np
+    import torch
+
+    from zeldovich_tpu_torch.ops.fft import y_dft, y_dft_plain, zx_dft, zx_dft_plain
+    from zeldovich_tpu_torch.ops.modes_real import synthesize_pair
+
+    say(f"== phase 9: out of core at size on {smi()}")
+    for cmd in (["free", "-g"], ["df", "-BG", tempfile.gettempdir()]):
+        out = subprocess.run(cmd, capture_output=True, text=True)
+        for line in out.stdout.splitlines():
+            say(f"  {cmd[0]}: {line}")
+    tmp = Path(tempfile.mkdtemp(prefix="zt_ooc_"))
+    try:
+        for ppd in (1024, 2048):
+            need = 2 * 2 * ppd**3 * 4
+            ram, disk = _host_space(tmp)
+            # RAM when it holds the stage beside the pinned buffers
+            backing = ("ram" if ram > need + (16 << 30) else
+                       "disk" if disk > need + (8 << 30) else None)
+            say(f"  {ppd}^3: stage {need / 1e9:.1f} GB; host RAM available "
+                f"{ram / 1e9:.1f} GB, {tmp} free {disk / 1e9:.1f} GB: "
+                + (f"{backing} stage" if backing else "not run, neither holds it"))
+            if backing is None:
+                continue
+            m, stage = _pass1_at(ppd, tmp, backing)
+            check(bool(np.isfinite(stage[:, :, ::m.slab - 1]).all()),
+                  f"{ppd}^3: non-finite stage")
+            if ppd == 1024:
+                # one slab's host side: D2H into pinned memory, then the
+                # copy into the stage; and the stage holds the device's slab
+                y0 = ppd // m.slab // 2 * m.slab  # the slab holding ppd/2
+                k = m._pass1_slab(y0)
+                pinned = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
+                d2h = _time(lambda: pinned.copy_(k, non_blocking=True))
+                t0 = time.perf_counter()
+                stage[:, :, y0:y0 + m.slab] = pinned.numpy()
+                host_ms = 1e3 * (time.perf_counter() - t0)
+                say(f"  one {k.nbytes / 1e9:.2f} GB slab: D2H {d2h:.3f} ms "
+                    f"({k.nbytes / d2h / 1e6:.1f} GB/s), host copy into the "
+                    f"stage {host_ms:.3f} ms ({k.nbytes / host_ms / 1e6:.1f} GB/s)")
+                check(torch.equal(torch.from_numpy(np.asarray(
+                    stage[:, :, y0:y0 + m.slab])), k.cpu()),
+                    "the staged slab differs from the device's")
+                del k, pinned
+                _pass2_at(m, stage)
+            del m, stage
+            shutil.rmtree(tmp / "ic", ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    m2 = model_for(2048, False)
+    cfg, tables = m2.cfg, m2.tables
+    kernel = lambda: zx_dft(synthesize_pair(0, 32, cfg, tables, torch.float32), +1)
+    plain = lambda: zx_dft_plain(
+        synthesize_pair(0, 32, cfg, tables, torch.float32, plain=True), +1)
+    compare(kernel(), plain(), ROUTE_TOL, "2048^3 pass-1 y-slab (2, 2, 32, 2048, 2048)")
+    t = _turns(kernel, plain, rounds=1)
+    say(f"  2048^3 pass-1 y-slab, B5 + fields + zx: kernel route {t[0]:.3f} ms, "
+        f"plain route {t[1]:.3f} ms")
+    del m2, cfg, tables
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2048)
+    z = torch.randn((2, 2, 2048, 32, 2048), device="cuda", generator=gen)
+    compare(counted("y_dft", lambda: y_dft(z, +1)), y_dft_plain(z, +1), DFT_TOL,
+            "2048^3 pass-2 z-slab y_dft (2, 2, 2048, 32, 2048)")
+    t = _turns(lambda: y_dft(z, +1), lambda: y_dft_plain(z, +1), rounds=1)
+    say(f"  2048^3 pass-2 z-slab y_dft: kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms")
+    del z
+    torch.cuda.empty_cache()
+
+
+def _run_cli(par: Path, *flags) -> dict | None:
+    """cli.main on a .par; returns the parsed QA statistics (None for a
+    --part 1 run, which writes no particles)."""
     from zeldovich_tpu_torch import cli
 
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        rc = cli.main([str(par)])
+        rc = cli.main([str(par), *flags])
     text = err.getvalue()
     for line in text.splitlines():
-        if any(w in line for w in ("took", "rms", "displacements", "resident")) \
-                or re.match(r"\s*(Model|Mode|Inverse|Output)", line):
+        if any(w in line for w in ("took", "rms", "displacements", "resident",
+                                   "Checkpoint")) \
+                or re.match(r"\s*(Model|Mode|Inverse|Output|Out-of-core|Writing|Loading)",
+                            line):
             say("  " + line.strip())
     check(rc == 0, f"cli exited {rc}:\n{text}")
+    if "--part" in flags and flags[flags.index("--part") + 1] == "1":
+        return None
     rms = float(re.search(r"pixels is (\S+)", text).group(1))
     disp = re.search(r"displacements are \((\S+), (\S+), (\S+)\)", text).groups()
     qa = {"rms": rms, "max_disp": [float(v) for v in disp]}
@@ -416,8 +711,6 @@ def _ic_files(d: Path, ppd: int, cpd: int):
 
 def _against_plain(tmp: Path, name: str, par: Path, x_plain):
     """Every particle of run `name` against x_plain through the same writer."""
-    import numpy as np
-
     from zeldovich_tpu_torch.models.pipeline import OutputWriter, Parameters
     from zeldovich_tpu_torch.utils.streamio import stream_xspace
 
@@ -428,26 +721,115 @@ def _against_plain(tmp: Path, name: str, par: Path, x_plain):
     writer = OutputWriter(param)
     with contextlib.redirect_stderr(io.StringIO()):
         stream_xspace(x_plain, writer)
-    files = _ic_files(tmp / name, 128, cpd_for(128))
+    _same_particles(tmp / name, tmp / f"{name}_plain", 128, "plain")
+
+
+def _same_particles(got_dir: Path, want_dir: Path, ppd: int, what: str):
+    """Every ic_* particle of got_dir against want_dir's: indices exact,
+    displacements and velocities to PARTICLE_TOL of the scale."""
+    import numpy as np
+
+    from zeldovich_tpu_torch.models.pipeline import output_dtype
+
+    dtype = output_dtype("RVZel")
+    files = _ic_files(got_dir, ppd, cpd_for(ppd))
     worst = {"displ": 0.0, "vel": 0.0}
     for f in files:
         # the writer's RVZel record layout, as read_particles reads it
-        got = np.fromfile(f, dtype=writer.dtype)
-        want = np.fromfile(tmp / f"{name}_plain" / f.name, dtype=writer.dtype)
+        got = np.fromfile(f, dtype=dtype)
+        want = np.fromfile(want_dir / f.name, dtype=dtype)
         for c in ("i", "j", "k"):
             check(np.array_equal(got[c], want[c]), f"{f.name} {c} differs")
         for c in ("displ", "vel"):
             scale = float(np.abs(want[c]).max())
             err = float(np.abs(got[c] - want[c]).max())
             worst[c] = max(worst[c], err / scale)
-    say(f"  worst |kernel - plain| / max: displ {worst['displ']:.3e}, "
+    say(f"  worst |run - {what}| / max: displ {worst['displ']:.3e}, "
         f"vel {worst['vel']:.3e} (tol {PARTICLE_TOL:g})")
-    check(max(worst.values()) <= PARTICLE_TOL, f"{name}: particles differ")
+    check(max(worst.values()) <= PARTICLE_TOL, f"{got_dir.name}: particles differ")
 
 
 HALF = ("halfspace_pack_zx", "c2r_y")
 TRANSFORMS = ("zx_dft", "y_dft")
 FULL = ("halfspace_boxmuller", *TRANSFORMS)
+OOC = ("boxmuller", *TRANSFORMS)
+SEPARATE = ("halfspace_pack", "zx_dft", "c2r_y")
+OOC_FLAGS = ["--out-of-core"]
+PART = [["--part", "1"], ["--part", "2"]]
+
+#: name, ppd, PLT, extra keys, CLI flags of each invocation, the kernels the
+#: run must launch (and no other), the run its particles are held against
+RUNS = (
+    ("example", 128, True, {}, [[]], HALF, "plain"),
+    ("fnl_plt128", 128, True, FNL, [[]], FULL, "plain"),
+    ("plt128", 128, True, {}, [[]], HALF, None),
+    ("plain256", 256, False, {}, [[]], HALF, None),
+    ("plt256", 256, True, {}, [[]], HALF, None),
+    ("fnl512", 512, False, FNL, [[]], FULL, None),
+    ("corner256", 256, False, CORNER, [[]], FULL, None),
+    ("v1_128", 128, False, V1, [[]], TRANSFORMS, None),  # v1 draws on the host
+    ("ooc_plain256", 256, False, {}, [OOC_FLAGS], OOC, "plain256"),
+    ("ooc_fnl_plt128", 128, True, FNL, [OOC_FLAGS + ["--backing", "disk"]], OOC,
+     "fnl_plt128"),
+    ("ooc_fnl512", 512, False, FNL, [OOC_FLAGS], OOC, None),
+    ("part_plt128", 128, True, {}, PART, FULL, "plt128"),
+    ("part_ooc_plt128", 128, True, {}, [OOC_FLAGS + f for f in PART], OOC, "plt128"),
+)
+KEEP = {"fnl_plt128", "plt128", "plain256"}  # held against later
+
+
+def _check_launches(name, launches, want):
+    say(f"  launches: {launches}")
+    for k in want:
+        check(launches[k] >= 1, f"{name}: kernel {k} never launched")
+    for k in set(launches) - set(want):
+        check(launches[k] == 0, f"{name}: kernel {k} launched off its path")
+
+
+def _write_par(tmp: Path, name: str, ppd: int, plt: bool, extra) -> Path:
+    par = tmp / f"{name}.par"
+    if name == "example":
+        text = EXAMPLE.read_text()
+        text = re.sub(r"InitialConditionsDirectory.*",
+                      f'InitialConditionsDirectory = "{tmp / name}"', text)
+        text = re.sub(r'(ZD_\w+_filename\s*=\s*)"zeldovich_tpu/',
+                      rf'\1"{ROOT}/zeldovich_tpu/', text)
+        par.write_text(text)
+    else:
+        par.write_text(par_text(ppd, tmp / name, plt, **extra))
+    return par
+
+
+def _half_route_api(tmp: Path, total: dict):
+    """The separate-kernel half route through the model API at 256^3,
+    written through the writer; particles against the CLI's plain256."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.models.pipeline import OutputWriter, Parameters, Zeldovich
+    from zeldovich_tpu_torch.utils.streamio import stream_xspace
+
+    name = "half_api256"
+    say(f"-- {name}: 256^3 plain, kspace_half_pair -> xspace_half_pair(spm)")
+    param = Parameters.from_file(_write_par(tmp, name, 256, False, {}))
+    (tmp / name).mkdir()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        kernels.reset_launches()
+        m = Zeldovich(param, dtype=torch.float32, device="cuda")
+        x = m.xspace_half_pair(m.kspace_half_pair())
+        writer = OutputWriter(param)
+        stream_xspace(x, writer)
+        writer.report(m.Pk)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+    say("  " + next(ln for ln in err.getvalue().splitlines() if "pixels is" in ln))
+    _check_launches(name, launches, SEPARATE)
+    for k, v in launches.items():
+        total[k] += v
+    _same_particles(tmp / name, tmp / "plain256", 256, "plain256 (fused route)")
+    del x, m
+    shutil.rmtree(tmp / name)
 
 
 def phase_end_to_end():
@@ -455,42 +837,25 @@ def phase_end_to_end():
 
     from zeldovich_tpu_torch import kernels
 
-    say("== phase 7: end to end through zeldovich_tpu_torch.cli.main")
+    say("== phase 10: end to end through zeldovich_tpu_torch.cli.main")
     tmp = Path(tempfile.mkdtemp(prefix="zt_smoke_"))
-    runs = (  # name, ppd, PLT, extra keys, the kernels it must launch
-        ("example", 128, True, {}, HALF),
-        ("fnl_plt128", 128, True, FNL, FULL),
-        ("plain256", 256, False, {}, HALF),
-        ("plt256", 256, True, {}, HALF),
-        ("fnl512", 512, False, FNL, FULL),
-        ("corner256", 256, False, CORNER, FULL),
-        ("v1_128", 128, False, V1, TRANSFORMS),  # v1 draws on the host
-    )
     try:
         total = {k: 0 for k in kernels.launches}
-        for name, ppd, plt, extra, want in runs:
-            par = tmp / f"{name}.par"
-            if name == "example":
-                text = EXAMPLE.read_text()
-                text = re.sub(r"InitialConditionsDirectory.*",
-                              f'InitialConditionsDirectory = "{tmp / name}"', text)
-                text = re.sub(r'(ZD_\w+_filename\s*=\s*)"zeldovich_tpu/',
-                              rf'\1"{ROOT}/zeldovich_tpu/', text)
-                par.write_text(text)
-            else:
-                par.write_text(par_text(ppd, tmp / name, plt, **extra))
-            say(f"-- {name}: {ppd}^3 {'PLT' if plt else 'plain'} {extra or ''}")
+        for name, ppd, plt, extra, calls, want, against in RUNS:
+            par = _write_par(tmp, name, ppd, plt, extra)
+            say(f"-- {name}: {ppd}^3 {'PLT' if plt else 'plain'} {extra or ''} "
+                f"{' then '.join(' '.join(c) for c in calls if c)}")
             kernels.reset_launches()
-            _run_cli(par)
+            for flags in calls:
+                _run_cli(par, *flags)
             launches = dict(kernels.launches)
-            say(f"  launches: {launches}")
-            for k in want:
-                check(launches[k] >= 1, f"{name}: kernel {k} never launched")
-            for k in set(HALF + FULL) - set(want):
-                check(launches[k] == 0, f"{name}: kernel {k} launched off its path")
+            _check_launches(name, launches, want)
             for k, v in launches.items():
                 total[k] += v
             _ic_files(tmp / name, ppd, cpd_for(ppd))
+            left = [f.name for f in (tmp / name).iterdir()
+                    if f.name.startswith("zeldovich.")]
+            check(not left, f"{name} left {left} behind")
             if name == "example":
                 from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
                 from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx_plain
@@ -500,12 +865,17 @@ def phase_end_to_end():
                     m.cfg, m.tables, m.pk_eff, m.plt_coefs), 128)
                 _against_plain(tmp, name, par, x)
                 del x, m
-            elif name == "fnl_plt128":
+            elif against == "plain":
                 m = model_for(128, True, **FNL)
                 x = m.xspace_pair(plain=True)
                 _against_plain(tmp, name, par, x)
                 del x, m
-            shutil.rmtree(tmp / name)
+            elif against is not None:
+                _same_particles(tmp / name, tmp / against, ppd, against)
+            if name == "plain256":
+                _half_route_api(tmp, total)
+            if name not in KEEP:
+                shutil.rmtree(tmp / name)
             torch.cuda.empty_cache()
         say(f"  launches over the runs: {total}")
         return total
@@ -530,6 +900,9 @@ def main() -> int:
     full_errs, full_ms = phase_fullgrid_kernels()
     per_kernel = phase_timing()
     phase_fullgrid_timing()
+    b5_err, b5_ms = phase_b5()
+    b3_err, b3_ms = phase_b3()
+    phase_outofcore()
     launches = phase_end_to_end()
     card = smi()
 
@@ -551,10 +924,16 @@ def main() -> int:
               also_replaces="zeldovich_tpu/ops/pallas_fft.py:374"),
         entry("y_dft", "fft_axis.cu", "zeldovich_tpu/ops/pallas_fft.py:437",
               full_errs["y"], full_ms["y"]),
+        entry("boxmuller", "boxmuller.cu", "zeldovich_tpu/ops/pallas_synth.py:301",
+              b5_err, b5_ms),
+        entry("halfspace_pack", "synth.cu", "zeldovich_tpu/ops/pallas_synth.py:470",
+              b3_err, b3_ms),
     ]}
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s "
         "(max_abs_err and ms at 512^3 f32: B1/B2 the plain half step, B4 the "
-        "plain configuration's half space, zx/y a (2, 2, 512, 512, 512) grid)")
+        "plain configuration's half space, zx/y a (2, 2, 512, 512, 512) grid, "
+        "B5 the 64-row chunk of the y0 = 0 slab (max_abs_err over three "
+        "slabs), B3 the plain configuration's packed half spectrum)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"ok": True, "device": {

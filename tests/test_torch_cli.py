@@ -33,13 +33,13 @@ def _write_par(path, outdir, ppd=16, **over):
     return path
 
 
-def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
-    par = _write_par(tmp_path / "p.par", tmp_path / "ic")
+def _run_without_jax(tmp_path, par, *flags):
+    """The CLI in a fresh interpreter; asserts jax never loaded."""
     code = (
         "import sys\n"
         "import zeldovich_tpu_torch\n"
         "from zeldovich_tpu_torch.cli import main\n"
-        f"rc = main([{str(par)!r}, '--device', 'cpu'])\n"
+        f"rc = main([{str(par)!r}, '--device', 'cpu', *{list(flags)!r}])\n"
         "jax = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
         "print('JAXMODS', jax)\n"
         "sys.exit(rc if not jax else 3)\n"
@@ -50,8 +50,22 @@ def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAXMODS []" in proc.stdout
+    return proc
+
+
+def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic")
+    proc = _run_without_jax(tmp_path, par)
     assert len(list((tmp_path / "ic").glob("ic_*"))) == 8
     assert "zeldovich took" in proc.stderr
+
+
+def test_out_of_core_disk_run_leaves_jax_unloaded(tmp_path):
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic")
+    proc = _run_without_jax(tmp_path, par, "--out-of-core", "--backing", "disk")
+    assert len(list((tmp_path / "ic").glob("ic_*"))) == 8
+    assert not list((tmp_path / "ic").glob("*.mm"))
+    assert "Out-of-core streamed run" in proc.stderr
 
 
 FNL = dict(ZD_f_NL=10.0, ZD_n_s=0.96, Omega_M=0.3)
@@ -80,14 +94,23 @@ def test_memory_plan_counts_the_phi_grid(tmp_path, capsys, over, narrays):
 
 @pytest.mark.parametrize(
     "flags,item",
-    [(["--part", "1"], "A8"), (["--sharded"], "A10"), (["--out-of-core"], "A9"),
-     (["--distributed"], "A10"), (["--profile", "d"], "A11"),
-     (["--dtype", "df64"], "A6")],
+    [(["--sharded"], "A10"), (["--distributed"], "A10"),
+     (["--profile", "d"], "A11"), (["--dtype", "df64"], "A6")],
 )
 def test_unported_flags_exit_1(tmp_path, capsys, flags, item):
     par = _write_par(tmp_path / "p.par", tmp_path / "ic")
     assert cli.main([str(par), "--device", "cpu", *flags]) == 1
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--out-of-core"], ["--out-of-core", "--slab-mb", "1"], ["--part", "1"],
+])
+def test_ported_flags_run(tmp_path, capsys, flags):
+    """--out-of-core and --part no longer exit 1."""
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic", ZD_qPLT=0)
+    assert cli.main([str(par), "--device", "cpu", *flags]) == 0
+    assert "not ported" not in capsys.readouterr().err
 
 
 def test_cuda_without_a_card_exits_1(tmp_path, capsys, monkeypatch):

@@ -52,6 +52,11 @@ CASES = {
     "fnl": FNL,
     "fnl_plt": dict(FNL, **PLT),
     "corner_kcut2": dict(ZD_CornerModes=1, ZD_k_cutoff=2.0),
+    # the half path's other options, on the full grid through f_NL
+    "fnl_qonemode": dict(FNL, ZD_qonemode=1, ZD_one_mode=[1, 2, 3]),
+    "fnl_pk_smooth": dict(FNL, ZD_Pk_smooth=2.0),
+    "fnl_fixed_power": dict(FNL, ZD_qPk_fix_to_mean=1),
+    "fnl_density_only": dict(FNL, ZD_qdensity=2),
 }
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -112,7 +117,7 @@ def test_xspace_pair_matches_jax(case, dtype):
     m = Zeldovich(p, dtype=getattr(torch, dtype))
     assert not m.half_exact
     got = m.xspace_half_pair().numpy()  # falls back to the full grid
-    assert got.shape == ((4 if "plt" in case else 2), 2, 32, 32, 32)
+    assert got.shape == (m.cfg.narray, 2, 32, 32, 32)
     _close(got, want, dtype)
 
 

@@ -1,16 +1,23 @@
 """Command-line entry point: ``python -m zeldovich_tpu_torch <param_file>``.
 
-The in-core path of ``zeldovich_tpu/cli.py`` on one CUDA device: reads
-the parameter file, reports the memory plan, runs mode synthesis and the
-inverse transforms through the hand-written kernels (the half-spectrum
+The single-device paths of ``zeldovich_tpu/cli.py`` on one CUDA device:
+reads the parameter file, reports the memory plan, runs mode synthesis and
+the inverse transforms through the hand-written kernels (the half-spectrum
 step, or the full-grid step for f_NL, ZD_Version=1 and CornerModes with
 k_cutoff != 1), streams the particle output, then prints the physics QA
-statistics and throughput, with the same phases, timers, messages and
-exit codes.
+statistics and throughput, with the same phases, timers, messages,
+checkpoint paths and exit codes.
 
   --device cuda (default) runs on the card and exits 1 when there is none;
   --device cpu runs the plain tensor-op versions (for tests and checks).
   --dtype float32 (default; the kernels' type) or float64 (--device cpu).
+  --out-of-core [--backing ram|disk] [--slab-mb N] streams y- and z-slabs
+      of N MB through a host staging buffer (grids larger than the card).
+  --part 1 writes the k-space checkpoint and stops: in-core the full grid
+      as a chunk directory zeldovich.kspace.ckpt, out-of-core the pass-1
+      stage as the memmap zeldovich.kspace.mm, both in the output
+      directory; --part 2 resumes from it, writes the particles and
+      removes it.
 
 Flags of the JAX CLI that are not ported yet exit 1 naming the ROADMAP
 item that will bring them.
@@ -24,9 +31,7 @@ import time
 
 #: unported flag -> (how it shows in args, ROADMAP item)
 _NOT_PORTED = {
-    "--part": ("part", "A8 (PART1/PART2 checkpoints)"),
     "--sharded": ("sharded", "A10 (several devices)"),
-    "--out-of-core": ("out_of_core", "A9 (out-of-core staging)"),
     "--distributed": ("distributed", "A10 (several hosts)"),
     "--profile": ("profile", "A11 (device traces)"),
 }
@@ -44,6 +49,8 @@ def main(argv=None):
     ap.add_argument("--part", type=int, choices=(1, 2), default=None)
     ap.add_argument("--profile", metavar="DIR", default=None)
     ap.add_argument("--out-of-core", action="store_true")
+    ap.add_argument("--backing", choices=("ram", "disk"), default="ram")
+    ap.add_argument("--slab-mb", type=int, default=2048)
     ap.add_argument("--sharded", action="store_true")
     ap.add_argument("--distributed", action="store_true")
     args = ap.parse_args(argv)
@@ -79,6 +86,9 @@ def main(argv=None):
     from .models.pipeline import Zeldovich
     from .utils.streamio import stream_xspace
 
+    if args.part:
+        print(f"This is zeldovich part {args.part}", file=sys.stderr)
+
     try:
         param = Parameters.from_file(args.param_file)
     except FileNotFoundError as e:
@@ -108,38 +118,98 @@ def main(argv=None):
 
     timers = PhaseTimers()
     sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
+    # PART1/PART2 boundary state: a chunked y-slab directory (in-core) or
+    # the staged grid as a disk memmap (out-of-core)
+    ckpt = param.output_path / "zeldovich.kspace.ckpt"
+    ckpt_mm = param.output_path / "zeldovich.kspace.mm"
     with timers.phase("Model setup (P(k), RNG tables, eigenmodes)"):
-        model = Zeldovich(param, dtype=dtype, device=args.device)
-        sync()
-    setup_output_dir(param)
+        if args.out_of_core:
+            from .models.outofcore import OutOfCoreZeldovich
 
-    with timers.phase("Mode synthesis (+ f_NL phi pass)"):
-        # the static synthesis inputs; the draws themselves run fused
-        # into the forward step below
-        _ = (model.pk_eff, model.plt_coefs)
+            model = OutOfCoreZeldovich(
+                param, dtype=dtype, slab_bytes=args.slab_mb << 20,
+                backing=args.backing, device=args.device,
+            )
+        else:
+            model = Zeldovich(param, dtype=dtype, device=args.device)
         sync()
+    if args.part != 2:
+        setup_output_dir(param)
+
+    if args.out_of_core:
+        # streamed run (the PART boundary is the staged host buffer)
+        with timers.phase("Out-of-core streamed run"):
+            if args.part == 1:
+                stage = model.stage_pass1(stage=model.stage_memmap(ckpt_mm, "w+"))
+                stage.flush()
+                print(f"Checkpoint written to {ckpt_mm}", file=sys.stderr)
+            elif args.part == 2:
+                model.run(setup_dir=False, stage=model.stage_memmap(ckpt_mm, "r"))
+                model.cleanup_stage_memmap(ckpt_mm)
+            else:
+                model.run(setup_dir=False)
+        timers.report(file=sys.stderr)
+        _report_rate(param, t_total)
+        return 0
+
+    from .utils.checkpoint import load_kspace, remove_kspace, save_kspace
+
+    if args.part == 2:
+        with timers.phase("Loading k-space checkpoint"):
+            kgrid = torch.from_numpy(load_kspace(ckpt))
+            want = (param.narray, 2, param.ppd, param.ppd, param.ppd)
+            if tuple(kgrid.shape) != want or kgrid.dtype != dtype:
+                print(f"checkpoint holds {kgrid.dtype} {tuple(kgrid.shape)} but "
+                      f"this run expects {dtype} {want} (part 1/2 must use the "
+                      "same .par and --dtype)", file=sys.stderr)
+                return 1
+            kgrid = kgrid.to(args.device)
+            sync()
+    else:
+        with timers.phase("Mode synthesis (+ f_NL phi pass)"):
+            # the full-grid k-space only when checkpointing; otherwise the
+            # static synthesis inputs, the draws running fused into the
+            # forward step below
+            kgrid = model.kspace_pair() if args.part == 1 else None
+            _ = (model.pk_eff, model.plt_coefs)
+            sync()
+
+    if args.part == 1:
+        with timers.phase("Writing k-space checkpoint"):
+            save_kspace(kgrid, ckpt)
+        timers.report(file=sys.stderr)
+        print(f"Checkpoint written to {ckpt}", file=sys.stderr)
+        return 0
 
     with timers.phase("Inverse FFT"):
-        # the half-spectrum step, or (f_NL, ZD_Version=1, CornerModes with
-        # k_cutoff != 1) the full-grid step with its phi pass
-        x = model.xspace_half_pair()
+        # a loaded grid, the half-spectrum step, or (f_NL, ZD_Version=1,
+        # CornerModes with k_cutoff != 1) the full-grid step with its phi
+        # pass
+        x = model.xspace_half_pair() if kgrid is None else model.xspace_pair(kgrid)
         sync()
+    del kgrid
 
     with timers.phase("Output"):
         writer = OutputWriter(param)
         stream_xspace(x, writer)
     del x
 
+    if args.part == 2 and ckpt.exists():
+        remove_kspace(ckpt)
+
     writer.report(model.Pk)
     timers.report(file=sys.stderr)  # the current stderr, not import-time's
+    _report_rate(param, t_total)
+    return 0
 
+
+def _report_rate(param, t_total):
     elapsed = time.perf_counter() - t_total
     print(
         f"zeldovich took {elapsed:.4g} sec for ppd {param.ppd} ==> "
         f"{param.np / 1e6 / elapsed:.3g} Mpart/sec",
         file=sys.stderr,
     )
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 // B1: half-spectrum mode synthesis + packing + ky=0 fixup + inverse DFTs
-// along z and x, for one H100 (sm_90a).
+// along z and x, for one H100 (sm_90a); and B3 (zt_b3_pack, below), the
+// same synthesis and packing alone.
 //
 // Replaces the Pallas TPU kernel
 //   zeldovich_tpu/ops/pallas_synth.py::halfspace_pack_zx_pallas
@@ -184,7 +185,70 @@ __global__ void __launch_bounds__(256) fft_z_kernel(float* out, const float2* tw
   }
 }
 
+// B3: the packed half spectrum, untransformed.
+//
+// Replaces the Pallas TPU kernel
+//   zeldovich_tpu/ops/pallas_synth.py::halfspace_pack_pallas
+// (body _pack_grid_kernel).  Contract: out (narray, 2, 2, half+1, Z, X)
+// float32 = (array, +/- packing, re/im, ky, z, x), every mode of the
+// generated half packed as in B1 (mode_packings), the ky=0 plane RAW (the
+// caller applies the self-conjugate fixup) and the y-Nyquist row zero.
+//
+// What bounds it.  B1's per-mode work without its transforms: it reads
+// pk (and the four PLT planes) and writes 16 (32 under PLT) float32 per
+// mode, 2.2 GB at 512^3 plain: device-memory bytes.
+//
+// Design.  One thread per mode, consecutive threads along x, so each of
+// the 2 * narray * 2 output planes is written coalesced; one block row of
+// x per (z, ky).  The ky = half blocks write the zero row.
+__global__ void __launch_bounds__(256) pack_kernel(Params p) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int z = blockIdx.y, ky = blockIdx.z;
+  const int n = p.n, half = n >> 1, nrow = 2 * p.narray;
+  if (x >= n) return;
+  const size_t nn = (size_t)n * n;
+  const size_t plane = (size_t)(half + 1) * nn;  // one (array, pm, reim) stack
+  float* base = p.out + (size_t)ky * nn + (size_t)z * n + x;
+  float2 P[8];
+  if (ky == half) {
+    for (int r = 0; r < nrow; ++r) P[r] = make_float2(0.0f, 0.0f);
+  } else {
+    mode_packings(p, ky, z, x, P);
+  }
+  // row r = 2a + pm: its re plane is stack 2r, its im plane 2r + 1
+  for (int r = 0; r < nrow; ++r) {
+    base[(size_t)(2 * r) * plane] = P[r].x;
+    base[(size_t)(2 * r + 1) * plane] = P[r].y;
+  }
+}
+
 }  // namespace
+
+extern "C" int zt_b3_pack(const void* planes, const void* mzx, const void* czx,
+                          const void* pk, const void* coefs, void* out, int n,
+                          int narray, int flags, float fund, float fund2,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Params p;
+  p.planes = (const u64*)planes;
+  p.mzx = (const u64*)mzx;
+  p.czx = (const u64*)czx;
+  p.pk = (const float*)pk;
+  p.coefs = (const float*)coefs;
+  p.tw = nullptr;
+  p.out = (float*)out;
+  p.n = n;
+  p.logn = zt::ilog2(n);
+  p.narray = narray;
+  p.flags = flags;
+  p.fund = fund;
+  p.fund2 = fund2;
+  const int threads = n < 256 ? n : 256;
+  pack_kernel<<<dim3((n + threads - 1) / threads, n, n / 2 + 1), threads, 0,
+                (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
 
 // Column tile width of the strided passes: ~64 KB of shared memory.
 extern "C" int zt_col_tile(int n) {

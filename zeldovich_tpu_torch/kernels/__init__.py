@@ -35,7 +35,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 
 #: kernel name -> number of launches since the last reset_launches()
 launches = {"halfspace_pack_zx": 0, "c2r_y": 0, "halfspace_boxmuller": 0,
-            "zx_dft": 0, "y_dft": 0}
+            "zx_dft": 0, "y_dft": 0, "boxmuller": 0, "halfspace_pack": 0}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -137,6 +137,10 @@ def library() -> ctypes.CDLL:
         lib.zt_b2_c2r_y.argtypes = [_VP] * 3 + [_I] * 4 + [_VP]
         lib.zt_b4_boxmuller.restype = _I
         lib.zt_b4_boxmuller.argtypes = [_VP] * 7 + [_I] * 4 + [_VP]
+        lib.zt_b5_boxmuller_at.restype = _I
+        lib.zt_b5_boxmuller_at.argtypes = [_VP] * 10 + [_LL, _I, _I, _I, _VP]
+        lib.zt_b3_pack.restype = _I
+        lib.zt_b3_pack.argtypes = [_VP] * 6 + [_I] * 3 + [_F, _F, _I, _VP]
         lib.zt_zx_dft.restype = _I
         lib.zt_zx_dft.argtypes = [_VP] * 3 + [_I, _I, _LL, _I, _VP]
         lib.zt_y_dft.restype = _I
@@ -192,6 +196,34 @@ def launch_boxmuller(planes64, mzx64, czx64, pk, live, re, im, n, half,
     )
     _check(lib, rc, "halfspace_boxmuller")
     launches["halfspace_boxmuller"] += 1
+
+
+def launch_boxmuller_at(sy, sz, sx, planes64, mzx64, czx64, pk, live, re, im,
+                        count, n, fixed_power):
+    """B5: draws + Box-Muller at per-mode source indices into re, im."""
+    lib = library()
+    rc = lib.zt_b5_boxmuller_at(
+        sy.data_ptr(), sz.data_ptr(), sx.data_ptr(), planes64.data_ptr(),
+        mzx64.data_ptr(), czx64.data_ptr(), pk.data_ptr(), live.data_ptr(),
+        re.data_ptr(), im.data_ptr(), count, n, int(fixed_power),
+        re.device.index, _stream(re),
+    )
+    _check(lib, rc, "boxmuller")
+    launches["boxmuller"] += 1
+
+
+def launch_halfspace_pack(planes64, mzx64, czx64, pk, coefs, out, n, narray,
+                          flags, fund, fund2):
+    """B3: the packed half spectrum (ky=0 raw, Nyquist row zero) into out."""
+    lib = library()
+    rc = lib.zt_b3_pack(
+        planes64.data_ptr(), mzx64.data_ptr(), czx64.data_ptr(),
+        pk.data_ptr(), None if coefs is None else coefs.data_ptr(),
+        out.data_ptr(), n, narray, flags, fund, fund2, out.device.index,
+        _stream(out),
+    )
+    _check(lib, rc, "halfspace_pack")
+    launches["halfspace_pack"] += 1
 
 
 def launch_zx_dft(pair, out, tw, n, K, batch):

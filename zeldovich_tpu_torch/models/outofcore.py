@@ -1,0 +1,195 @@
+"""Out-of-core pipeline on one device: grids larger than device memory.
+
+Port of the single-device pair form of
+``zeldovich_tpu/models/outofcore.py::OutOfCoreZeldovich`` (the analog of
+the reference's ``-DDISK`` mode).  The full ``(narray, 2, Y, Z, X)`` grid
+lives in a host staging buffer (RAM, or an ``np.memmap`` for grids beyond
+RAM) and the device streams slabs through the kernels:
+
+  pass 1 (y-slabs):  ``synthesize_pair`` (B5 draws at each mode's source
+                     index) -> zx_dft(+1) in place -> stage;
+  pass 2 (z-slabs):  stage -> y_dft(+1) in place -> particle writer.
+
+f_NL adds a phi round trip through a second stage of one array: the
+generation pass (gen_phi), then y_dft(+1), the non-linear map and
+y_dft(-1) of (phi, 0) on z-slabs, then zx_dft(-1) on y-slabs; pass 1
+reads each slab's phi(k) at the same and the reflected indices.
+
+Every slab, in the generated half, across ppd/2 or in the mirror half,
+takes the general source-index synthesis: the JAX package's identity
+fast path for slabs (``synthesize_slab_pair_identity``) is wrong outside
+rows [0, ppd/2) (ROADMAP C1) and is not ported.
+
+The stage layout ``(narray, 2, ppd, ppd, ppd)`` float32 is byte for byte
+the JAX pair stage, so either package resumes the other's PART1 stage.
+Each streaming loop runs one slab ahead (utils/streamio.py).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from zeldovich_tpu.utils.output import OutputWriter, setup_output_dir
+from zeldovich_tpu.utils.streamio import AsyncSlabWriter, _flush_chunk
+
+from ..ops.fft import y_dft, zx_dft
+from ..ops.modes_real import _reflect_zx, synthesize_pair
+from ..utils.streamio import slabs_to_device, stream_to_host
+from .pipeline import Zeldovich, phi_nl
+
+
+def _ysel(y0, ny):
+    return (slice(None), slice(None), slice(y0, y0 + ny))
+
+
+def _zsel(z0, nz):
+    return (slice(None), slice(None), slice(None), slice(z0, z0 + nz))
+
+
+class OutOfCoreZeldovich(Zeldovich):
+    """Streamed pipeline with a host-resident (or disk-memmapped) grid."""
+
+    def __init__(self, param, dtype=torch.float32, slab_bytes=2 << 30,
+                 backing: str = "ram", device="cpu"):
+        super().__init__(param, dtype=dtype, device=device)
+        if backing not in ("ram", "disk"):
+            raise ValueError(f"backing must be 'ram' or 'disk', got {backing!r}")
+        self.backing = backing
+        itemsize = 16 if dtype == torch.float64 else 8
+        row = param.ppd * param.ppd * param.narray * itemsize
+        self.slab = max(1, min(param.ppd, slab_bytes // row))
+        while param.ppd % self.slab:
+            self.slab -= 1
+        self._fnp = np.float64 if dtype == torch.float64 else np.float32
+
+    # -- staging buffer -------------------------------------------------
+    def stage_layout(self, narray=None):
+        """(shape, numpy dtype) of the host staging buffer."""
+        p = self.param
+        narray = p.narray if narray is None else narray
+        return (narray, 2, p.ppd, p.ppd, p.ppd), self._fnp
+
+    def stage_memmap(self, path, mode="w+"):
+        """Disk-backed staging buffer at ``path`` (the PART1/2 checkpoint)."""
+        shape, dtype = self.stage_layout()
+        return np.memmap(path, dtype=dtype, mode=mode, shape=shape)
+
+    def cleanup_stage_memmap(self, path):
+        Path(path).unlink(missing_ok=True)
+
+    def _alloc_stage(self, narray, name="zeldovich.stage"):
+        shape, dtype = self.stage_layout(narray)
+        if self.backing == "disk":
+            path = self.param.output_path / f"{name}.mm"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            return np.memmap(path, dtype=dtype, mode="w+", shape=shape)
+        return np.empty(shape, dtype=dtype)
+
+    def _y_sink(self, stage):
+        def sink(y0, h):
+            stage[_ysel(y0, self.slab)] = h
+        return sink
+
+    def _slab_starts(self):
+        return range(0, self.param.ppd, self.slab)
+
+    def _pass1_slab(self, y0, gen_phi=False, phi_pair=None):
+        """Synthesize the y-slab [y0, y0+slab) and transform z and x."""
+        k = synthesize_pair(y0, self.slab, self.cfg, self.tables, self.dtype,
+                            gen_phi=gen_phi, phi_pair=phi_pair,
+                            D_source=self._D_source)
+        return zx_dft(k, +1, out=k)
+
+    # -- phi round trip -------------------------------------------------
+    def _phi_stage(self):
+        """phi(k), the full grid (1, 2, Y, Z, X), in a host stage."""
+        p = self.param
+        stage = self._alloc_stage(1, "zeldovich.phi")
+        stream_to_host(((y0, self._pass1_slab(y0, gen_phi=True))
+                        for y0 in self._slab_starts()), self._y_sink(stage))
+        inv_n3 = 1.0 / p.ppd**3
+
+        def fwd_y_phi_nl(z):
+            y_dft(z, +1, out=z)
+            return y_dft(phi_nl(z, p.f_NL, inv_n3), -1, out=z)
+
+        zkeys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
+        stream_to_host(((sel, fwd_y_phi_nl(z)) for sel, z in slabs_to_device(
+            zkeys, stage.__getitem__, self.device)), stage.__setitem__)
+        ykeys = [_ysel(y0, self.slab) for y0 in self._slab_starts()]
+        stream_to_host(((sel, zx_dft(y, -1, out=y)) for sel, y in slabs_to_device(
+            ykeys, stage.__getitem__, self.device)), stage.__setitem__)
+        return stage
+
+    def _phi_pairs(self, phi_stage):
+        """(y0, ((same_re, same_im), (refl_re, refl_im))) for each y-slab
+        [y0, y0+slab): phi(k) on the device at (y, z, x) and at the
+        reflected index ((-y, -z, -x) mod ppd).  Both row blocks come
+        through ``slabs_to_device``, so the host gather of a slab's blocks
+        overlaps the device's work on the slab before."""
+        p = self.param
+
+        def rows(key):
+            y0, reflected = key
+            if not reflected:
+                return phi_stage[0, :, y0:y0 + self.slab]
+            return phi_stage[0][:, (p.ppd - np.arange(y0, y0 + self.slab)) % p.ppd]
+
+        keys = [(y0, r) for y0 in self._slab_starts() for r in (False, True)]
+        blocks = slabs_to_device(keys, rows, self.device)
+        for (y0, _), same in blocks:
+            _, refl = next(blocks)
+            refl = _reflect_zx(refl)
+            yield y0, ((same[0], same[1]), (refl[0], refl[1]))
+
+    def _drop_phi_stage(self, phi_stage):
+        """Remove the consumed phi stage's disk file, if any: it must not
+        outlive the pass (it is 1/narray of the main stage)."""
+        if phi_stage is not None and self.backing == "disk":
+            (self.param.output_path / "zeldovich.phi.mm").unlink(missing_ok=True)
+
+    # -- main passes ----------------------------------------------------
+    def stage_pass1(self, stage=None):
+        """Pass 1: synthesis + z/x inverse DFTs of every y-slab, staged to
+        the host as (narray, 2, y, z, x)."""
+        p = self.param
+        phi_stage = self._phi_stage() if p.f_NL != 0 else None
+        if stage is None:
+            stage = self._alloc_stage(p.narray)
+
+        phis = (((y0, None) for y0 in self._slab_starts()) if phi_stage is None
+                else self._phi_pairs(phi_stage))
+        stream_to_host(((y0, self._pass1_slab(y0, phi_pair=phi)) for y0, phi in phis),
+                       self._y_sink(stage))
+        self._drop_phi_stage(phi_stage)
+        return stage
+
+    def run(self, setup_dir: bool = True, stage=None) -> OutputWriter:
+        """Pass 2 over a stage (pass 1 first when none is given): the y
+        inverse DFT of every z-slab, streamed through the writer."""
+        p = self.param
+        if setup_dir:
+            setup_output_dir(p)
+        own_stage = stage is None
+        if own_stage:
+            stage = self.stage_pass1()
+        writer = OutputWriter(p)
+        aw = AsyncSlabWriter(writer)
+        keys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
+        items = ((sel[3].start, y_dft(z, +1, out=z)) for sel, z in slabs_to_device(
+            keys, stage.__getitem__, self.device))
+        try:
+            stream_to_host(items, lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
+        finally:
+            aw.close()
+        if own_stage and self.backing == "disk":
+            # the run completed: reclaim the stage (the reference's
+            # quickdelete of consumed block files); a crash leaves it on
+            # disk as the resume point
+            del stage
+            (p.output_path / "zeldovich.stage.mm").unlink(missing_ok=True)
+        writer.report(self.Pk)
+        return writer

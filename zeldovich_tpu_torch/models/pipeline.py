@@ -6,7 +6,9 @@ coefficient planes -> the forward step -> streamed particle output + QA
 report.  The forward step takes one of two routes:
 
 * the half spectrum (``half_exact`` configurations): B1 (synthesis +
-  packing + z/x transforms) and B2 (c2r along y);
+  packing + z/x transforms) and B2 (c2r along y); or, through the model
+  API ``kspace_half_pair`` -> ``xspace_half_pair(spm)``, the
+  separate-kernel route: B3 (synthesis + packing), zx, B2;
 * the full grid (f_NL, ZD_Version=1, CornerModes with k_cutoff != 1):
   B4 draws -> ``synthesize_full_fast_pair`` -> ``ifft3_pair`` (B8 along y,
   B6/B7 over z and x), with the f_NL phi pass in front.
@@ -19,16 +21,35 @@ import sys
 import numpy as np
 import torch
 
-from zeldovich_tpu.utils.output import OutputWriter, setup_output_dir
+from zeldovich_tpu.utils.output import (  # noqa: F401 (output_dtype re-exported)
+    OutputWriter, output_dtype, setup_output_dir,
+)
 from zeldovich_tpu.utils.params import Parameters
 from zeldovich_tpu.utils.power import PowerSpectrum, mode_amplitude_tables
 
 from ..ops import plt as plt_ops
 from ..ops.c2r import c2r_y
-from ..ops.mmfft import fft3_pair, ifft3_pair
+from ..ops.mmfft import fft3_pair, ifft3_half_pair, ifft3_pair
 from ..ops.modes import SynthConfig, SynthTables
-from ..ops.modes_real import pk_effective, plt_coef_fields, synthesize_full_fast_pair
-from ..ops.synth import halfspace_pack_zx
+from ..ops.modes_real import (
+    fix_ky0_packed, pk_effective, plt_coef_fields, synthesize_full_fast_pair,
+)
+from ..ops.synth import halfspace_pack, halfspace_pack_zx
+
+
+def phi_nl(phi, f_NL: float, inv_n3: float):
+    """In place on an x-space phi pair (..., 2, Y, Z, X) whose imaginary
+    part is scratch: re = (phi + f_NL phi^2) * inv_n3, im = 0
+    (zeldovich.cpp:749-759; the transforms are unnormalized, so the round
+    trip's 1/ppd^3 is folded in here)."""
+    x, t = phi.select(-4, 0), phi.select(-4, 1)
+    torch.mul(x, f_NL, out=t)
+    t.mul_(x)
+    t.add_(x)
+    t.mul_(inv_n3)
+    x.copy_(t)
+    t.zero_()
+    return phi
 
 
 class Zeldovich:
@@ -90,12 +111,25 @@ class Zeldovich:
             self._plt_coefs = plt_coef_fields(self.cfg, self.tables, self.dtype)
         return self._plt_coefs
 
-    def xspace_half_pair(self):
+    def kspace_half_pair(self):
+        """The packed half spectrum (narray, 2, 2, half+1, Z, X): kernel B3
+        and the ky=0 fixup.  Only for ``half_exact`` configurations."""
+        if not self.half_exact:
+            raise NotImplementedError(
+                "non-Hermitian configuration uses the full-grid pair path")
+        spm = halfspace_pack(self.cfg, self.tables, self.pk_eff, self.plt_coefs)
+        return fix_ky0_packed(spm)
+
+    def xspace_half_pair(self, spm=None):
         """The forward step: (narray, 2, Y, Z, X) x-space real pairs.
 
-        Falls back to the full-grid path for the configurations the half
-        spectrum cannot represent, as the JAX package does.
+        Without ``spm``, the fused route (B1, B2); it falls back to the
+        full-grid path for the configurations the half spectrum cannot
+        represent, as the JAX package does.  With ``spm`` (from
+        ``kspace_half_pair``), the separate-kernel route: zx, then B2.
         """
+        if spm is not None:
+            return ifft3_half_pair(spm)
         if not self.half_exact:
             return self.xspace_pair()
         g = halfspace_pack_zx(self.cfg, self.tables, self.pk_eff, self.plt_coefs)
@@ -118,13 +152,7 @@ class Zeldovich:
             D_source=self._D_source, plain=plain,
         )[0]
         ifft3_pair(phi, out=phi, plain=plain)
-        x, t = phi[0], phi[1]
-        torch.mul(x, p.f_NL, out=t)
-        t.mul_(x)
-        t.add_(x)
-        t.mul_(1.0 / p.ppd**3)
-        x.copy_(t)
-        t.zero_()
+        phi_nl(phi, p.f_NL, 1.0 / p.ppd**3)
         return fft3_pair(phi, out=phi, plain=plain)
 
     def kspace_pair(self, plain: bool = False):
@@ -135,9 +163,10 @@ class Zeldovich:
             D_source=self._D_source, plt_coefs=self.plt_coefs, plain=plain,
         )
 
-    def xspace_pair(self, plain: bool = False):
-        """Full-grid forward step: (narray, 2, Y, Z, X), transformed in place."""
-        k = self.kspace_pair(plain)
+    def xspace_pair(self, kpair=None, plain: bool = False):
+        """Full-grid forward step: (narray, 2, Y, Z, X), transformed in
+        place; of ``kpair`` (a loaded PART1 grid) when given."""
+        k = self.kspace_pair(plain) if kpair is None else kpair
         return ifft3_pair(k, out=k, plain=plain)
 
     def run_pair(self, setup_dir: bool = True) -> OutputWriter:

@@ -1,14 +1,21 @@
-"""B4: Gaussian deviates over the generated half space.
+"""B4 and B5: Gaussian deviates D = live * cgauss(pk) from the pcg64 stream.
 
-Port of ``zeldovich_tpu/ops/pallas_synth.py::halfspace_boxmuller_pallas``.
-``halfspace_boxmuller(tables, pk, fixed_power, live=None)`` returns
-``(D_re, D_im)`` of shape ``(half, Z, X)``: per mode the first-draw state
-``plane[y] * mzx[z, x] + czx[z, x]``, two XSL-RR draws and Box-Muller
-against ``pk`` (times ``live`` where given).
+Ports of ``zeldovich_tpu/ops/pallas_synth.py``:
 
-On a CUDA tensor it launches the hand-written kernel (csrc/boxmuller.cu)
-or raises; on a CPU tensor it runs the plain version, the front of the
-plain half-spectrum synthesis (``modes_real.draw_planes``) over y-chunks.
+* ``halfspace_boxmuller(tables, pk, fixed_power, live=None)`` (B4,
+  ``halfspace_boxmuller_pallas``) returns ``(D_re, D_im)`` of shape
+  ``(half, Z, X)``: per mode of the generated half space the first-draw
+  state ``plane[y] * mzx[z, x] + czx[z, x]``, two XSL-RR draws and
+  Box-Muller against ``pk`` (times ``live`` where given);
+* ``boxmuller(tables, sy, sz, sx, pk, live, fixed_power)`` (B5,
+  ``boxmuller_pallas``) does the same at per-mode source indices: the
+  state ``plane[sy] * mzx[sz, sx] + czx[sz, sx]``, any shape.  The TPU
+  kernel takes the jumped states as limb planes; here the kernel forms
+  them itself from the indices, one native 128-bit multiply-add.
+
+On a CUDA tensor each launches its hand-written kernel
+(csrc/boxmuller.cu) or raises; on a CPU tensor it runs the plain version,
+the draw chain in int64-limb torch ops (``modes_real.gaussian``).
 """
 
 from __future__ import annotations
@@ -17,13 +24,14 @@ import torch
 
 from .. import kernels
 from .modes import SynthTables
-from .modes_real import draw_planes, y_chunk
+from .modes_real import draw_planes, gaussian, y_chunk
 from .synth import check_kernel_size, check_operands
 
 
 def halfspace_boxmuller_plain(tables: SynthTables, pk, fixed_power: bool,
                               live=None):
-    """Plain version: the draw chain in int64-limb torch ops, chunked over y."""
+    """Plain version of B4: the draw chain in int64-limb torch ops,
+    chunked over y."""
     half, ppd = pk.shape[0], pk.shape[-1]
     re, im = torch.empty_like(pk), torch.empty_like(pk)
     cy = y_chunk(half, ppd, 1 << 22)
@@ -34,6 +42,14 @@ def halfspace_boxmuller_plain(tables: SynthTables, pk, fixed_power: bool,
             None if live is None else live[y0:y1],
         )
     return re, im
+
+
+def _table_operands(tables: SynthTables, n: int, half: int) -> dict:
+    return {
+        "planes64": (tables.planes64, (half, 2), torch.int64),
+        "mzx64": (tables.mzx64, (2, n, n), torch.int64),
+        "czx64": (tables.czx64, (2, n, n), torch.int64),
+    }
 
 
 def halfspace_boxmuller(tables: SynthTables, pk, fixed_power: bool, live=None):
@@ -49,16 +65,57 @@ def halfspace_boxmuller(tables: SynthTables, pk, fixed_power: bool, live=None):
         raise ValueError(f"halfspace_boxmuller: no kernel for device {dev}")
     half, n = pk.shape[0], pk.shape[-1]
     check_kernel_size(n)
-    want = {
-        "pk": (pk, (half, n, n), torch.float32),
-        "planes64": (tables.planes64, (half, 2), torch.int64),
-        "mzx64": (tables.mzx64, (2, n, n), torch.int64),
-        "czx64": (tables.czx64, (2, n, n), torch.int64),
-    }
+    want = {"pk": (pk, (half, n, n), torch.float32), **_table_operands(tables, n, half)}
     if live is not None:
         want["live"] = (live, (half, n, n), torch.float32)
     check_operands(want, dev)
     re, im = torch.empty_like(pk), torch.empty_like(pk)
     kernels.launch_boxmuller(tables.planes64, tables.mzx64, tables.czx64, pk,
                              live, re, im, n, half, fixed_power)
+    return re, im
+
+
+def boxmuller_plain(tables: SynthTables, sy, sz, sx, pk, live, fixed_power: bool):
+    """Plain version of B5: gather the limb tables at the indices, then
+    the draw chain, over flat chunks of ~4M modes."""
+    shape = pk.shape
+    sy, sz, sx, pk, live = (t.reshape(-1) for t in (sy, sz, sx, pk, live))
+    re, im = torch.empty_like(pk), torch.empty_like(pk)
+    step = 1 << 22
+    for i0 in range(0, pk.numel(), step):
+        s = slice(i0, i0 + step)
+        iy, iz, ix = sy[s].long(), sz[s].long(), sx[s].long()
+        plane = tuple(p[iy] for p in tables.planes)
+        m = tuple(a[iz, ix] for a in tables.mzx)
+        c = tuple(a[iz, ix] for a in tables.czx)
+        re[s], im[s] = gaussian(plane, m, c, pk[s], fixed_power, live[s])
+    return re.reshape(shape), im.reshape(shape)
+
+
+def boxmuller(tables: SynthTables, sy, sz, sx, pk, live, fixed_power: bool):
+    """D = live * cgauss(pk) at source indices: (D_re, D_im) shaped like pk.
+
+    sy, sz, sx: int32 indices of each mode's source in the generated half
+    space (sy in [0, half), sz and sx in [0, ppd)), shaped like pk;
+    pk: P(|k|) of the source; live: 0/1 (the zero rules).
+    """
+    dev = pk.device
+    if dev.type == "cpu":
+        return boxmuller_plain(tables, sy, sz, sx, pk, live, fixed_power)
+    if dev.type != "cuda":
+        raise ValueError(f"boxmuller: no kernel for device {dev}")
+    n = tables.mzx64.shape[-1]
+    half = tables.planes64.shape[0]
+    check_kernel_size(n)
+    shape = tuple(pk.shape)
+    want = {
+        "sy": (sy, shape, torch.int32), "sz": (sz, shape, torch.int32),
+        "sx": (sx, shape, torch.int32), "pk": (pk, shape, torch.float32),
+        "live": (live, shape, torch.float32), **_table_operands(tables, n, half),
+    }
+    check_operands(want, dev)
+    re, im = torch.empty_like(pk), torch.empty_like(pk)
+    kernels.launch_boxmuller_at(sy, sz, sx, tables.planes64, tables.mzx64,
+                                tables.czx64, pk, live, re, im, pk.numel(), n,
+                                fixed_power)
     return re, im

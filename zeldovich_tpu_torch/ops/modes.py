@@ -101,6 +101,25 @@ def zero_rules(kx, ky, kz, n2, cfg: SynthConfig):
     return zero
 
 
+def hermitian_source(y, z, x, ppd: int):
+    """Map output grid indices to their generating mode (exact, int64).
+
+    Returns (sy, sz, sx, mirror, hard_zero), broadcast to one shape: the
+    source lies in the generated half space sy in [0, ppd/2] (sy = ppd/2
+    only on the y-Nyquist plane); ``mirror`` marks entries that take the
+    conjugate of their source; ``hard_zero`` marks the y-Nyquist plane and
+    the origin (the JAX package's ops/modes.py::hermitian_source).
+    """
+    y, z, x = torch.broadcast_tensors(y, z, x)
+    half = ppd // 2
+    mirror = (y > half) | ((y == 0) & ((z > half) | ((z == 0) & (x > half))))
+    sy = torch.where(mirror, (ppd - y) % ppd, y)
+    sz = torch.where(mirror, (ppd - z) % ppd, z)
+    sx = torch.where(mirror, (ppd - x) % ppd, x)
+    hard_zero = (y == half) | ((y == 0) & (z == 0) & (x == 0))
+    return sy, sz, sx, mirror, hard_zero
+
+
 def _words(lm):
     """Limb tuple -> (lo64, hi64) words stacked on a new leading axis.
 

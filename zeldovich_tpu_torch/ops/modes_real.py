@@ -11,13 +11,15 @@ Port of the main-path parts of ``zeldovich_tpu/ops/modes_real.py``:
 * ``synthesize_full_fast_pair``: the full k-grid ``(narray, 2, Y, Z, X)``
   of the configurations the half spectrum cannot represent (f_NL, v1,
   CornerModes with k_cutoff != 1), from the generated half space by
-  reflection (``assemble_pair``), with ``phi_of_D`` and ``finish_fields``.
+  reflection (``assemble_pair``), with ``phi_of_D`` and ``finish_fields``;
+* ``synthesize_pair``: any rows of that full grid, each entry computed at
+  its source mode (the out-of-core slab synthesis).
 
-``synthesize_half_pair`` and ``draw_planes`` are the plain versions the
-CUDA kernels of ops/synth.py (B1) and ops/boxmuller.py (B4) are held
-against.  Work is chunked over y so the int64 limb temporaries of the
-draw chain, and the field temporaries of the full grid, stay bounded at
-512^3 and above.
+``synthesize_half_pair``, ``pack_half_raw`` and ``gaussian`` are the
+plain versions the CUDA kernels of ops/synth.py (B1, B3) and
+ops/boxmuller.py (B4, B5) are held against.  Work is chunked over y so
+the int64 limb temporaries of the draw chain, and the field temporaries
+of the full grid, stay bounded at 512^3 and above.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from . import pcg_device
-from .modes import SynthConfig, SynthTables, zero_rules
+from .modes import SynthConfig, SynthTables, hermitian_source, zero_rules
 
 
 def _np_dtype(dtype):
@@ -75,51 +77,53 @@ def _inv_k2(n2, cfg: SynthConfig, dtype):
     return torch.where(n2 == 0, 0.0, 1.0 / torch.where(n2 == 0, 1.0, k2))
 
 
-def plt_coef_fields(cfg: SynthConfig, tables: SynthTables, dtype):
-    """Setup-time PLT coefficient planes, stacked (4, half, Z, X).
+def plt_coefs_at(kx, ky, kz, n2, cfg: SynthConfig, tables: SynthTables, dtype):
+    """PLT coefficients (cx, cy, cz, f) at wavevectors (kx, ky, kz).
 
-    Planes cx, cy, cz = evec_j * rescale * fundamental / k^2 (the per-mode
+    cx, cy, cz = evec_j * rescale * fundamental / k^2 (the per-mode
     displacement coefficients) and f, the PLT growth factor of the
-    velocity arrays.  One stacked tensor, so the kernel takes one pointer.
-    Chunked over y: the 8-point gather holds ~8 chunk-sized (.., 4)
-    temporaries at once.
+    velocity arrays; the JAX package's _finish_fields expressions.
     """
     from .plt import eigenmode_lookup
 
-    ppd, half = cfg.ppd, cfg.ppd // 2
     npf = _np_dtype(dtype)
+    ik2 = _inv_k2(n2, cfg, dtype)
+    evec, eval_ = eigenmode_lookup(kx, ky, kz, cfg.ppd, tables.eig, dtype=dtype)
+    f = (torch.sqrt(1.0 + 24.0 * eval_ * float(npf(cfg.f_cluster))) - 1.0) * 0.25
+    fund = float(npf(cfg.fundamental))
+    if cfg.qPLTrescale:
+        rescale = torch.pow(float(npf(cfg.plt_rescale_base)),
+                            float(npf(cfg.plt_target_f)) - f)
+        scale = rescale * fund * ik2
+    else:
+        scale = fund * ik2
+    return evec[0] * scale, evec[1] * scale, evec[2] * scale, f
+
+
+def plt_coef_fields(cfg: SynthConfig, tables: SynthTables, dtype):
+    """Setup-time PLT coefficient planes, stacked (4, half, Z, X).
+
+    ``plt_coefs_at`` over the generated half space: one stacked tensor, so
+    the kernel takes one pointer.  Chunked over y: the 8-point gather
+    holds ~8 chunk-sized (.., 4) temporaries at once.
+    """
+    ppd, half = cfg.ppd, cfg.ppd // 2
     dev = tables.device
     out = torch.empty((4, half, ppd, ppd), dtype=dtype, device=dev)
     cy = y_chunk(half, ppd, 32 * ppd * ppd)
-    fund = float(npf(cfg.fundamental))
     for y0 in range(0, half, cy):
         ky, kz, kx, n2 = _wavenumbers(y0, y0 + cy, ppd, dev)
-        ik2 = _inv_k2(n2, cfg, dtype)
-        evec, eval_ = eigenmode_lookup(kx, ky, kz, ppd, tables.eig, dtype=dtype)
-        f = (torch.sqrt(1.0 + 24.0 * eval_ * float(npf(cfg.f_cluster))) - 1.0) * 0.25
-        if cfg.qPLTrescale:
-            rescale = torch.pow(float(npf(cfg.plt_rescale_base)),
-                                float(npf(cfg.plt_target_f)) - f)
-            scale = rescale * fund * ik2
-        else:
-            scale = fund * ik2
-        for j in range(3):
-            out[j, y0:y0 + cy] = evec[j] * scale
-        out[3, y0:y0 + cy] = f
+        for j, c in enumerate(plt_coefs_at(kx, ky, kz, n2, cfg, tables, dtype)):
+            out[j, y0:y0 + cy] = c
     return out
 
 
-def draw_planes(tables: SynthTables, y0: int, y1: int, pk, fixed_power: bool,
-                live=None):
-    """D = live * cgauss(pk) on the generated planes [y0, y1): (D_re, D_im).
+def gaussian(plane, m, c, pk, fixed_power: bool, live=None):
+    """D = live * cgauss(pk) from first-draw states plane * m + c.
 
-    Per mode the first-draw state plane[y] * mzx + czx, two XSL-RR draws
-    and Box-Muller against pk (the y-chunk of a (half, Z, X) field), in
-    pk's dtype: the plain version of kernel B4 and the front of B1.
+    Two XSL-RR draws per mode (one LCG step apart) and Box-Muller against
+    pk, in pk's dtype; the limb tuples broadcast against pk.
     """
-    plane = tuple(p[y0:y1, None, None] for p in tables.planes)
-    m = tuple(a[None] for a in tables.mzx)
-    c = tuple(a[None] for a in tables.czx)
     R, T = pcg_device.uniform_pair_from_affine(plane, m, c, pk.dtype)
     amp = torch.sqrt(pk) if fixed_power else torch.sqrt(-pk * torch.log(R))
     if live is not None:
@@ -128,20 +132,72 @@ def draw_planes(tables: SynthTables, y0: int, y1: int, pk, fixed_power: bool,
     return amp * cosv, amp * sinv
 
 
-def finish_fields(D, cfg: SynthConfig, y0: int, y1: int, coefs=None):
-    """(F, G, H) = c_j * (i D) for D on the generated planes [y0, y1).
+def draw_planes(tables: SynthTables, y0: int, y1: int, pk, fixed_power: bool,
+                live=None):
+    """D = live * cgauss(pk) on the generated planes [y0, y1): (D_re, D_im).
 
-    c_j = k_j * fundamental / k^2 (0 at the origin), or under PLT the
-    coefficient planes ``coefs`` (the chunk of plt_coef_fields' cx, cy,
-    cz): the JAX package's _finish_fields expressions.
+    Per mode the first-draw state plane[y] * mzx + czx (pk the y-chunk of
+    a (half, Z, X) field): the plain version of kernel B4 and the front of
+    B1.
     """
-    if coefs is None:
-        dtype = D[0].dtype
-        ky, kz, kx, n2 = _wavenumbers(y0, y1, cfg.ppd, D[0].device)
-        scale = float(_np_dtype(dtype)(cfg.fundamental)) * _inv_k2(n2, cfg, dtype)
-        coefs = tuple(k.to(dtype) * scale for k in (kx, ky, kz))
+    plane = tuple(p[y0:y1, None, None] for p in tables.planes)
+    m = tuple(a[None] for a in tables.mzx)
+    c = tuple(a[None] for a in tables.czx)
+    return gaussian(plane, m, c, pk, fixed_power, live)
+
+
+def field_coefs(kx, ky, kz, n2, cfg: SynthConfig, dtype):
+    """Displacement coefficients c_j = k_j * fundamental / k^2 (0 at the
+    origin), in the JAX package's rounding order."""
+    scale = float(_np_dtype(dtype)(cfg.fundamental)) * _inv_k2(n2, cfg, dtype)
+    return tuple(k.to(dtype) * scale for k in (kx, ky, kz))
+
+
+def finish_fields(D, coefs):
+    """(F, G, H) = c_j * (i D) for the coefficients c_j = coefs[j]
+    (``field_coefs``, or the PLT cx, cy, cz): the JAX package's
+    _finish_fields expressions."""
     # re = -c * D_im, im = c * D_re
     return tuple((-c * D[1], c * D[0]) for c in coefs[:3])
+
+
+def packed_fields(D, coefs, plt: bool, just_density: bool):
+    """The packed arrays of one chunk as (array, P, Q), array = P + iQ of
+    two real fields, each an (re, im) pair or None for a zero field:
+    (D, F) and (G, H) with (F, G, H) = finish_fields(D, coefs); under PLT
+    also (0, fF) and (fG, fH), f = coefs[3]; density only, (D, 0)."""
+    if just_density:
+        yield 0, D, None
+        return
+    F, G, H = finish_fields(D, coefs)
+    yield 0, D, F
+    yield 1, G, H
+    if plt:
+        f = coefs[3]
+        yield 2, None, (F[0] * f, F[1] * f)
+        yield 3, (G[0] * f, G[1] * f), (H[0] * f, H[1] * f)
+
+
+def _packing(P, Q, sign: int = 1):
+    """S+ = P + iQ (sign 1) or S- = P - iQ (sign -1) of two real fields as
+    an (re, im) pair; None is a zero field."""
+    if Q is None:
+        return P
+    if P is None:
+        return (-Q[1], Q[0]) if sign > 0 else (Q[1], -Q[0])
+    if sign > 0:
+        return P[0] - Q[1], P[1] + Q[0]
+    return P[0] + Q[1], P[1] - Q[0]
+
+
+def _coefs_of_planes(cfg: SynthConfig, y0: int, y1: int, dtype, device,
+                     plt_coefs=None):
+    """The field coefficients of the generated planes [y0, y1): the chunk
+    of the PLT planes, or field_coefs of the planes' wavevectors."""
+    if plt_coefs is not None:
+        return plt_coefs[:, y0:y1]
+    ky, kz, kx, n2 = _wavenumbers(y0, y1, cfg.ppd, device)
+    return field_coefs(kx, ky, kz, n2, cfg, dtype)
 
 
 def _reflect_zx(p):
@@ -173,23 +229,21 @@ def fix_ky0_packed(out):
     return out
 
 
-def _pack_into(out, a, y0, y1, Dp, Fp):
-    """Both packings of two real fields: S+ = D + iF, S- = D - iF."""
-    out[a, 0, 0, y0:y1] = Dp[0] - Fp[1]
-    out[a, 0, 1, y0:y1] = Dp[1] + Fp[0]
-    out[a, 1, 0, y0:y1] = Dp[0] + Fp[1]
-    out[a, 1, 1, y0:y1] = Dp[1] - Fp[0]
+def _pack_into(out, a, y0, y1, P, Q):
+    """Both packings of two real fields: S+ = P + iQ, S- = P - iQ."""
+    for s, sign in ((0, 1), (1, -1)):
+        out[a, s, 0, y0:y1], out[a, s, 1, y0:y1] = _packing(P, Q, sign)
 
 
-def synthesize_half_pair(cfg: SynthConfig, tables: SynthTables, dtype,
-                         pk_eff, plt_coefs=None):
-    """Half-SPECTRUM synthesis: (narray, 2, 2, half+1, Z, X), plain torch.
+def pack_half_raw(cfg: SynthConfig, tables: SynthTables, dtype, pk_eff,
+                  plt_coefs=None):
+    """The packed half spectrum (narray, 2, 2, half+1, Z, X) with the ky=0
+    plane RAW and the y-Nyquist row zero: the plain version of kernel B3.
 
     Per mode of the generated half-space: the first-draw state
     plane[y]*mzx + czx, two XSL-RR draws, Box-Muller against pk_eff, the
     displacement fields i k_j/k^2 D (or the PLT coefficient planes, and f
-    times them for the velocity arrays), both +/- packings; then the ky=0
-    fixup and the zero y-Nyquist row.
+    times them for the velocity arrays), both +/- packings.
     """
     ppd, half = cfg.ppd, cfg.ppd // 2
     dev = pk_eff.device
@@ -201,20 +255,18 @@ def synthesize_half_pair(cfg: SynthConfig, tables: SynthTables, dtype,
     for y0 in range(0, half, ny):
         y1 = y0 + ny
         D = draw_planes(tables, y0, y1, pk_eff[y0:y1], cfg.fixed_power)
-        if cfg.just_density:
-            zero = torch.zeros_like(D[0])
-            _pack_into(out, 0, y0, y1, D, (zero, zero))
-            continue
-        coefs = plt_coefs[:, y0:y1] if cfg.qPLT else None
-        F, G, H = finish_fields(D, cfg, y0, y1, coefs)
-        _pack_into(out, 0, y0, y1, D, F)
-        _pack_into(out, 1, y0, y1, G, H)
-        if cfg.qPLT:
-            f = coefs[3]
-            zero = torch.zeros_like(D[0])
-            _pack_into(out, 2, y0, y1, (zero, zero), (F[0] * f, F[1] * f))
-            _pack_into(out, 3, y0, y1, (G[0] * f, G[1] * f), (H[0] * f, H[1] * f))
-    return fix_ky0_packed(out)
+        coefs = (None if cfg.just_density else _coefs_of_planes(
+            cfg, y0, y1, dtype, dev, plt_coefs if cfg.qPLT else None))
+        for a, P, Q in packed_fields(D, coefs, cfg.qPLT, cfg.just_density):
+            _pack_into(out, a, y0, y1, P, Q)
+    return out
+
+
+def synthesize_half_pair(cfg: SynthConfig, tables: SynthTables, dtype,
+                         pk_eff, plt_coefs=None):
+    """Half-SPECTRUM synthesis: (narray, 2, 2, half+1, Z, X), plain torch:
+    ``pack_half_raw`` and then the ky=0 fixup."""
+    return fix_ky0_packed(pack_half_raw(cfg, tables, dtype, pk_eff, plt_coefs))
 
 
 def phi_of_D(D, n2, tables: SynthTables):
@@ -236,7 +288,7 @@ def assemble_pair(out, P, Q, y0: int):
     """Write the field P + iQ of generated planes [y0, y0+ny) into the full
     grid ``out`` (2, Y, Z, X).
 
-    P and Q are (re, im) pairs of (ny, Z, X) (Q None for a lone field).
+    P and Q are (re, im) pairs of (ny, Z, X), or None for a zero field.
     Plane y takes S+ = P + iQ; mirror plane n - y takes conj(S-) at the
     reflected (z, x), S- = P - iQ (the conjugates of both fields packed
     the same way); on plane 0 the in-plane mirror half (z > half, or z = 0
@@ -244,13 +296,9 @@ def assemble_pair(out, P, Q, y0: int):
     zero; the y-Nyquist plane is zero (the JAX package's _assemble_pair,
     with the packing done before the reflection: the same values).
     """
-    ny, n = P[0].shape[0], P[0].shape[-1]
+    sp, sm = _packing(P, Q, 1), _packing(P, Q, -1)
+    ny, n = sp[0].shape[0], sp[0].shape[-1]
     half, y1 = n // 2, y0 + ny
-    if Q is None:
-        sp = sm = P
-    else:
-        sp = (P[0] - Q[1], P[1] + Q[0])
-        sm = (P[0] + Q[1], P[1] - Q[0])
     out[0, y0:y1] = sp[0]
     out[1, y0:y1] = sp[1]
     ys = max(y0, 1)  # plane 0 has no mirror plane
@@ -322,16 +370,111 @@ def synthesize_full_fast_pair(cfg: SynthConfig, tables: SynthTables, dtype,
         if gen_phi:
             assemble_pair(out[0], phi_of_D(D, n2, tables), None, y0)
             continue
-        if cfg.just_density:
-            assemble_pair(out[0], D, None, y0)
+        coefs = (None if cfg.just_density else _coefs_of_planes(
+            cfg, y0, y1, dtype, dev, plt_coefs if plt else None))
+        for a, P, Q in packed_fields(D, coefs, plt, cfg.just_density):
+            assemble_pair(out[a], P, Q, y0)
+    return out
+
+
+def slab_chunk(ny: int, ppd: int) -> int:
+    """Rows of a slab synthesized at once: ~16M modes."""
+    return max(1, min(ny, (1 << 24) // (ppd * ppd)))
+
+
+def slab_modes(y0: int, y1: int, ppd: int, device):
+    """Rows [y0, y1) of the full grid at their source modes:
+    (sy, sz, sx, mirror, hard_zero, kx, ky, kz, n2), each (ny, Z, X)
+    int64 or bool, the wavevector (kx, ky, kz) the source's."""
+    half = ppd // 2
+    y = torch.arange(y0, y1, device=device)[:, None, None]
+    z = torch.arange(ppd, device=device)[None, :, None]
+    x = torch.arange(ppd, device=device)[None, None, :]
+    sy, sz, sx, mirror, hard_zero = hermitian_source(y, z, x, ppd)
+    kz = torch.where(sz > half, sz - ppd, sz)
+    kx = torch.where(sx > half, sx - ppd, sx)
+    n2 = kx * kx + sy * sy + kz * kz
+    return sy, sz, sx, mirror, hard_zero, kx, sy, kz, n2
+
+
+def draw_operands(modes, cfg: SynthConfig, tables: SynthTables, dtype):
+    """Kernel B5's operands for ``slab_modes``: int32 source indices (sy
+    clamped below half: the y-Nyquist plane is hard-zeroed anyway), P(k)
+    at the source (pk_n2[n2], not pk_eff) and live = not the zero rules."""
+    sy, sz, sx, _, _, kx, ky, kz, n2 = modes
+    zero = zero_rules(kx, ky, kz, n2, cfg)
+    idx = (torch.clamp(sy, max=cfg.ppd // 2 - 1), sz, sx)
+    idx = tuple(i.to(torch.int32).contiguous() for i in idx)
+    return (*idx, tables.pk_n2[n2].to(dtype), (~zero).to(dtype))
+
+
+def synthesize_pair(y0: int, ny: int, cfg: SynthConfig, tables: SynthTables,
+                    dtype, gen_phi: bool = False, phi_pair=None, D_source=None,
+                    plain: bool = False):
+    """Rows [y0, y0+ny) of the full k-grid as real pairs, any y0 and ny.
+
+    Returns (narray, 2, ny, Z, X), or (1, 2, ny, Z, X) phi(k) with
+    gen_phi: the out-of-core slab synthesis (the JAX package's
+    modes_real.synthesize_pair).  Every entry is computed at its source
+    mode (``hermitian_source``) in the generated half space and then
+    conjugated per field (negate im) where ``mirror`` and zeroed where
+    ``hard_zero``: slabs in the generated half, across ppd/2 and in the
+    mirror half all take this one path.  D at the source comes from:
+
+    * ``phi_pair`` = ((same_re, same_im), (refl_re, refl_im)), the f_NL
+      input pass (not with gen_phi): phi(k) at (y, z, x) and at the
+      reflected index, each (ny, Z, X); D = phi(source) * M(n2), zeroed
+      only at the origin;
+    * ``D_source`` (2, half, Z, X), the host-generated ZD_Version=1 field,
+      with the zero rules;
+    * kernel B5 (ops/boxmuller.py) at the source indices, against
+      pk_n2[n2(source)] with the zero rules as ``live``.
+
+    The fields follow at the source wavevector (the PLT coefficients
+    through ``plt_coefs_at``).  Rows are built in chunks of ~16M modes.
+    ``plain=True`` takes B5's plain version on any device.
+    """
+    from .boxmuller import boxmuller, boxmuller_plain
+
+    ppd, half = cfg.ppd, cfg.ppd // 2
+    dev = tables.device
+    if not 0 <= y0 < y0 + ny <= ppd:
+        raise ValueError(f"rows [{y0}, {y0 + ny}) are not rows of a {ppd}^3 grid")
+    use_phi = phi_pair is not None and not gen_phi
+    if (gen_phi or use_phi) and tables.M_n2 is None:
+        raise ValueError("the f_NL passes need tables.M_n2")
+    plt = cfg.qPLT and not gen_phi
+    narray = 1 if gen_phi else cfg.narray
+    draw = boxmuller_plain if plain else boxmuller
+    out = torch.empty((narray, 2, ny, ppd, ppd), dtype=dtype, device=dev)
+    cy = slab_chunk(ny, ppd)
+    for r0 in range(0, ny, cy):
+        r1 = min(ny, r0 + cy)
+        sm = slab_modes(y0 + r0, y0 + r1, ppd, dev)
+        sy, sz, sx, mirror, hard_zero, kx, ky, kz, n2 = sm
+        if use_phi:
+            (s_re, s_im), (f_re, f_im) = phi_pair
+            M = torch.where(n2 == 0, 0.0, tables.M_n2[n2].to(dtype))
+            D = (torch.where(mirror, f_re[r0:r1], s_re[r0:r1]) * M,
+                 torch.where(mirror, f_im[r0:r1], s_im[r0:r1]) * M)
+        elif D_source is not None:
+            zero = zero_rules(kx, ky, kz, n2, cfg)
+            src = (torch.clamp(sy, max=half - 1), sz, sx)  # y-Nyquist: zeroed
+            D = tuple(torch.where(zero, 0.0, D_source[j][src]) for j in range(2))
+        else:
+            D = draw(tables, *draw_operands(sm, cfg, tables, dtype), cfg.fixed_power)
+        live = (~hard_zero).to(dtype)
+        conj_live = torch.where(mirror, -live, live)
+
+        def C(w):
+            return None if w is None else (w[0] * live, w[1] * conj_live)
+
+        if gen_phi:
+            out[0, 0, r0:r1], out[0, 1, r0:r1] = C(phi_of_D(D, n2, tables))
             continue
-        coefs = plt_coefs[:, y0:y1] if plt else None
-        F, G, H = finish_fields(D, cfg, y0, y1, coefs)
-        assemble_pair(out[0], D, F, y0)
-        assemble_pair(out[1], G, H, y0)
-        if plt:
-            f = coefs[3]
-            zero = torch.zeros_like(D[0])
-            assemble_pair(out[2], (zero, zero), (F[0] * f, F[1] * f), y0)
-            assemble_pair(out[3], (G[0] * f, G[1] * f), (H[0] * f, H[1] * f), y0)
+        coefs = (None if cfg.just_density
+                 else plt_coefs_at(kx, ky, kz, n2, cfg, tables, dtype) if plt
+                 else field_coefs(kx, ky, kz, n2, cfg, dtype))
+        for a, P, Q in packed_fields(D, coefs, plt, cfg.just_density):
+            out[a, 0, r0:r1], out[a, 1, r0:r1] = _packing(C(P), C(Q))
     return out

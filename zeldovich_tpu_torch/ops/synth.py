@@ -1,14 +1,20 @@
-"""B1: fused half-spectrum synthesis + packing + ky=0 fixup + z/x inverse DFTs.
+"""B1 and B3: the half-spectrum synthesis and packing, with and without
+the z/x inverse DFTs.
 
-Port of ``zeldovich_tpu/ops/pallas_synth.py::halfspace_pack_zx_pallas``.
-``halfspace_pack_zx`` returns the z/x-transformed packed half-spectrum
-``(narray, 2, 2, half, Z, X)`` without the always-zero y-Nyquist row; the
-c2r y-transform (ops/c2r.py) is told ``n`` explicitly.
+Ports of ``zeldovich_tpu/ops/pallas_synth.py``:
 
-On a CUDA tensor it launches the hand-written kernel (csrc/synth.cu) or
-raises; on a CPU tensor it runs the plain version,
+* ``halfspace_pack_zx`` (B1, ``halfspace_pack_zx_pallas``) returns the
+  z/x-transformed packed half-spectrum ``(narray, 2, 2, half, Z, X)``
+  with the ky=0 fixup and without the always-zero y-Nyquist row; the c2r
+  y-transform (ops/c2r.py) is told ``n`` explicitly;
+* ``halfspace_pack`` (B3, ``halfspace_pack_pallas``) returns the
+  untransformed ``(narray, 2, 2, half+1, Z, X)`` with the ky=0 plane raw
+  and the Nyquist row zero: the separate-kernel half route's synthesis.
+
+On a CUDA tensor each launches its hand-written kernel (csrc/synth.cu)
+or raises; on a CPU tensor it runs the plain version: for B1
 ``synthesize_half_pair`` followed by an unnormalized sign +1 complex FFT
-over (z, x).
+over (z, x), for B3 ``pack_half_raw``.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch
 
 from .. import kernels
 from .modes import SynthConfig, SynthTables
-from .modes_real import synthesize_half_pair
+from .modes_real import pack_half_raw, synthesize_half_pair
 
 _FIXED_POWER, _JUST_DENSITY, _QPLT = 1, 2, 4
 
@@ -68,18 +74,12 @@ def halfspace_pack_zx_plain(cfg: SynthConfig, tables: SynthTables, pk_eff,
     return torch.stack([c.real, c.imag], dim=2)
 
 
-def halfspace_pack_zx(cfg: SynthConfig, tables: SynthTables, pk_eff,
-                      plt_coefs=None):
-    """Transformed packed half-spectrum (narray, 2, 2, half, Z, X).
-
-    pk_eff: (half, Z, X) pk_effective; plt_coefs: (4, half, Z, X) PLT
-    coefficient planes (modes_real.plt_coef_fields), required under PLT.
-    """
+def _kernel_operands(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs,
+                     what: str):
+    """Checks for the B1/B3 CUDA route; returns (coefs, flags, fund, fund2)."""
     dev = pk_eff.device
-    if dev.type == "cpu":
-        return halfspace_pack_zx_plain(cfg, tables, pk_eff, plt_coefs)
     if dev.type != "cuda":
-        raise ValueError(f"halfspace_pack_zx: no kernel for device {dev}")
+        raise ValueError(f"{what}: no kernel for device {dev}")
     n, half = cfg.ppd, cfg.ppd // 2
     check_kernel_size(n)
     if pk_eff.dtype != torch.float32:
@@ -101,12 +101,44 @@ def halfspace_pack_zx(cfg: SynthConfig, tables: SynthTables, pk_eff,
         | (_JUST_DENSITY if cfg.just_density else 0)
         | (_QPLT if coefs is not None else 0)
     )
-    out = torch.empty((cfg.narray, 2, 2, half, n, n), dtype=torch.float32,
-                      device=dev)
     fund = np.float32(cfg.fundamental)
+    return coefs, flags, float(fund), float(fund * fund)
+
+
+def halfspace_pack_zx(cfg: SynthConfig, tables: SynthTables, pk_eff,
+                      plt_coefs=None):
+    """Transformed packed half-spectrum (narray, 2, 2, half, Z, X).
+
+    pk_eff: (half, Z, X) pk_effective; plt_coefs: (4, half, Z, X) PLT
+    coefficient planes (modes_real.plt_coef_fields), required under PLT.
+    """
+    if pk_eff.device.type == "cpu":
+        return halfspace_pack_zx_plain(cfg, tables, pk_eff, plt_coefs)
+    coefs, flags, fund, fund2 = _kernel_operands(cfg, tables, pk_eff, plt_coefs,
+                                                 "halfspace_pack_zx")
+    n, half = cfg.ppd, cfg.ppd // 2
+    out = torch.empty((cfg.narray, 2, 2, half, n, n), dtype=torch.float32,
+                      device=pk_eff.device)
     kernels.launch_pack_zx(
         tables.planes64, tables.mzx64, tables.czx64, pk_eff, coefs,
-        twiddles(n, dev), out, n, cfg.narray, flags, float(fund),
-        float(fund * fund),
+        twiddles(n, pk_eff.device), out, n, cfg.narray, flags, fund, fund2,
+    )
+    return out
+
+
+def halfspace_pack(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs=None):
+    """B3: the packed half spectrum (narray, 2, 2, half+1, Z, X), the ky=0
+    plane raw (the caller applies ``modes_real.fix_ky0_packed``) and the
+    y-Nyquist row zero.  Operands as for halfspace_pack_zx."""
+    if pk_eff.device.type == "cpu":
+        return pack_half_raw(cfg, tables, pk_eff.dtype, pk_eff, plt_coefs)
+    coefs, flags, fund, fund2 = _kernel_operands(cfg, tables, pk_eff, plt_coefs,
+                                                 "halfspace_pack")
+    n, half = cfg.ppd, cfg.ppd // 2
+    out = torch.empty((cfg.narray, 2, 2, half + 1, n, n), dtype=torch.float32,
+                      device=pk_eff.device)
+    kernels.launch_halfspace_pack(
+        tables.planes64, tables.mzx64, tables.czx64, pk_eff, coefs, out, n,
+        cfg.narray, flags, fund, fund2,
     )
     return out

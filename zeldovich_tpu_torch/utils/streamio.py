@@ -1,19 +1,110 @@
-"""Overlapped device->host output streaming for torch tensors.
+"""Overlapped host <-> device slab streaming for torch tensors.
 
 Port of ``zeldovich_tpu/utils/streamio.py::stream_xspace`` for the pair
-layout (narray, 2, Y, Z, X).  On a CUDA tensor, z-chunks are sliced on the
-device and copied into pinned host buffers on a side stream, one chunk
-ahead of the writer: while chunk i+1 is in flight, chunk i is rebuilt
-into complex slabs and handed to the same background ``AsyncSlabWriter``
-/ ``OutputWriter`` the JAX package uses, so the ic_* bytes are produced by
-the same code from the same float32 values.
+layout (narray, 2, Y, Z, X), and of the out-of-core streaming loops
+(``models/outofcore.py::_stream_to_host`` and the staged z-slab loads):
+
+* ``stream_to_host(items, sink)``: device results to a host sink one slab
+  behind dispatch.  On CUDA each result is copied into one of two pinned
+  host buffers on a side stream, so slab i+1's compute and copy are in
+  flight while slab i is consumed on the host;
+* ``slabs_to_device(keys, view, device)``: host slabs (strided views of a
+  staging buffer) to the device.  On CUDA each view is gathered into one
+  of two pinned buffers and copied non-blocking, so the host gather of
+  slab i+1 overlaps the device's work on slab i;
+* ``stream_xspace(x, writer)``: an x-space grid in z-chunks of ~256 MB
+  through the same background ``AsyncSlabWriter`` / ``OutputWriter`` the
+  JAX package uses, so the ic_* bytes are produced by the same code from
+  the same float32 values.
+
+On the CPU both directions are plain host copies.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from zeldovich_tpu.utils.streamio import AsyncSlabWriter, _chunk_planes, _flush_chunk
+
+
+def _pinned_like(buf, shape, dtype):
+    """buf if it already has shape and dtype, else a new pinned tensor."""
+    if buf is not None and tuple(buf.shape) == tuple(shape) and buf.dtype == dtype:
+        return buf
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def stream_to_host(items, sink):
+    """sink(key, host ndarray) for each (key, tensor) of items, one behind.
+
+    A CPU tensor goes to the sink as it is (a view: the sink copies what it
+    keeps).  A CUDA tensor is copied to a pinned buffer on a side stream
+    after the work that produced it; the sink sees it once that copy has
+    ended, while the next item is already computed and copied.
+    """
+    bufs, side = [None, None], None
+    pending = None  # (key, buffer, event, device tensor kept alive)
+    try:
+        for i, (key, t) in enumerate(items):
+            if t.device.type == "cpu":
+                sink(key, t.numpy())
+                continue
+            b = i % 2  # bufs[b] was last read by the sink of item i - 2
+            bufs[b] = _pinned_like(bufs[b], t.shape, t.dtype)
+            if side is None:
+                side = torch.cuda.Stream(device=t.device)
+            side.wait_stream(torch.cuda.current_stream(t.device))
+            with torch.cuda.stream(side):
+                bufs[b].copy_(t, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(side)
+            if pending is not None:
+                _sink_pending(sink, pending)
+            pending = (key, bufs[b], ev, t)
+        if pending is not None:
+            _sink_pending(sink, pending)
+            pending = None
+    finally:
+        if side is not None:
+            side.synchronize()  # no copy may outlive its buffers
+
+
+def _sink_pending(sink, pending):
+    key, buf, ev, _ = pending
+    ev.synchronize()
+    sink(key, buf.numpy())
+
+
+def slabs_to_device(keys, view, device):
+    """Yield (key, tensor on device) with the contents of view(key).
+
+    view(key) is a host ndarray, typically a strided slab of a staging
+    buffer (RAM or np.memmap); it is never written through.  On CUDA the
+    slab is gathered into one of two pinned buffers and copied
+    non-blocking on the current stream.
+    """
+    device = torch.device(device)
+    bufs, events = [None, None], [None, None]
+    for i, key in enumerate(keys):
+        src = view(key)
+        if device.type == "cpu":
+            yield key, torch.from_numpy(np.array(src))
+            continue
+        b = i % 2
+        if events[b] is not None:
+            events[b].synchronize()  # the copy that last read bufs[b]
+        dtype = torch.from_numpy(np.empty(0, src.dtype)).dtype
+        bufs[b] = _pinned_like(bufs[b], src.shape, dtype)
+        np.copyto(bufs[b].numpy(), src)
+        dev = torch.empty(src.shape, dtype=dtype, device=device)
+        dev.copy_(bufs[b], non_blocking=True)
+        events[b] = torch.cuda.Event()
+        events[b].record()
+        yield key, dev
+    for ev in events:
+        if ev is not None:
+            ev.synchronize()
 
 
 def stream_xspace(x, writer):
@@ -21,49 +112,11 @@ def stream_xspace(x, writer):
     in z-chunks of ~256 MB; closes the writer."""
     ppd = x.shape[-2]
     chunk = _chunk_planes(x.shape, x.element_size(), ppd, True, 256 << 20)
-    starts = list(range(0, ppd, chunk))
     aw = AsyncSlabWriter(writer)
     try:
-        if x.device.type == "cpu":
-            for z0 in starts:
-                _flush_chunk(aw, z0, x[:, :, :, z0:z0 + chunk, :].numpy(), pair=True)
-        else:
-            _stream_cuda(x, aw, starts, chunk)
+        items = ((z0, x[:, :, :, z0:z0 + chunk, :].contiguous())
+                 for z0 in range(0, ppd, chunk))
+        stream_to_host(items, lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
     finally:
         aw.close()
     return writer
-
-
-def _stream_cuda(x, aw, starts, chunk):
-    """Double-buffered D2H: device staging -> pinned host on a side stream."""
-    shape = (*x.shape[:3], chunk, x.shape[-1])
-    dev = [torch.empty(shape, dtype=x.dtype, device=x.device) for _ in range(2)]
-    host = [torch.empty(shape, dtype=x.dtype, pin_memory=True) for _ in range(2)]
-    side = torch.cuda.Stream(device=x.device)
-    side.wait_stream(torch.cuda.current_stream(x.device))  # x is complete
-
-    def start_copy(i):
-        b = i % 2
-        with torch.cuda.stream(side):
-            z0 = starts[i]
-            dev[b].copy_(x[:, :, :, z0:z0 + chunk, :])
-            host[b].copy_(dev[b], non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(side)
-        return ev
-
-    def flush(j, ev):
-        ev.synchronize()
-        _flush_chunk(aw, starts[j], host[j % 2].numpy(), pair=True)
-
-    try:
-        pending = None  # (index, event)
-        for i in range(len(starts)):
-            # host[i % 2] was last read by the synchronous flush of chunk i-2
-            ev = start_copy(i)
-            if pending is not None:
-                flush(*pending)
-            pending = (i, ev)
-        flush(*pending)
-    finally:
-        side.synchronize()  # no copy may outlive the staging buffers
