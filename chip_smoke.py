@@ -9,14 +9,21 @@ script exits non-zero without printing a result:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions; build
    the kernels from csrc/ (one nvcc per source, in parallel) and print
-   ptxas registers, shared memory, spills;
+   ptxas registers, shared memory, spills; fail on any stack frame or
+   spill in the 16 axis DFT kernels (zx, y);
 2. kernel B1 (halfspace_pack_zx) against its plain version on the card, at
    128^3 with example.par's PLT configuration and at 512^3 plain float32;
 3. kernel B2 (c2r_y) against its plain version on phase 2's outputs;
 4. kernel B4 (halfspace_boxmuller) against its plain version at 512^3;
-   zx_dft (B6/B7) against torch.fft on a full (2, 2, 512, 512, 512) grid
-   and at n = 1024 and 2048 on a small batch; y_dft (B8) on the full
-   512^3 grid and a (2, 2, 512, 8, 512) z-slab; both signs;
+   zx_dft (B6/B7) and y_dft (B8) against their plain versions (torch.fft)
+   at the shapes the paths launch: zx on the 512^3 full grid and the
+   1024^3 and 2048^3 pass-1 y-slabs, y on the 512^3 full grid, the 1024^3
+   and 2048^3 pass-2 z-slabs and a thin (2, 2, 512, 8, 512) z-slab, and
+   small cases (SMALL) for every n in [16, 2048], ragged last tiles and
+   data off a 16-byte boundary; both signs, in place and out of place;
+   each path shape timed in turns plain, kernel, kernel, plain beside the
+   single library call (torch.fft.ifftn / ifft on a complex64 tensor
+   formed once, which the port never calls);
 5. the half-spectrum forward step (B1 + B2) timed against the plain route
    (torch ops + torch.fft) with CUDA events, in turns plain, kernel,
    kernel, plain: 512^3 plain, 512^3 PLT, and 1024^3 plain (kernel route,
@@ -52,10 +59,15 @@ script exits non-zero without printing a result:
    out of core, against the one-shot run.  Each run must launch the
    kernels of its path and no other.
 
-The last two lines are the kernel JSON summary and the result line
-{"ok": true, "device": {...}}.  No JAX is imported: the port reuses only
-the JAX package's jax-free host modules (parameters, power spectrum, host
-pcg64, the v1 MT19937 stream, the ic_* writer).
+Kernel times are CUDA events around several launches, per launch.  The
+last two lines are the kernel JSON summary (each kernel's launches on the
+end-to-end runs, error, times, the bound: the larger of its bytes over
+3.35 TB/s and its float32 operations over 67 TFLOP/s, and the library
+call's time where one exists) and the result line
+{"ok": true, "device": {...}}.  Nothing of JAX or of the JAX package is
+imported: the port has its own copies of the host modules (parameters,
+power spectrum, host pcg64, the v1 MT19937 stream, the ic_* writer); only
+the data files under zeldovich_tpu/assets are read.
 """
 
 from __future__ import annotations
@@ -79,6 +91,36 @@ ASSETS = ROOT / "zeldovich_tpu" / "assets"
 B1_TOL, B2_TOL, ZERO_TOL, PARTICLE_TOL = 1e-5, 2e-6, 1e-6, 1e-5
 B4_TOL, DFT_TOL = 1e-5, 1e-5
 B5_TOL, B3_TOL, ROUTE_TOL = 1e-5, 1e-5, 1e-5
+
+#: NVIDIA H100 SXM data sheet: device memory rate, float32 peak (no tensor
+#: cores); a kernel's bound is the larger of its bytes and its operations
+#: over these
+HBM_BPS, F32_OPS = 3.35e12, 67e12
+#: 32-bit operations a mode of the draw kernels (B1, B3-B5): the pcg64
+#: jump (one 128-bit multiply-add), two XSL-RR draws and Box-Muller
+DRAW_OPS = 100
+
+#: zx (B6/B7) and y (B8) at the shapes the paths launch: the 512^3 full
+#: grid, the 1024^3 and 2048^3 out-of-core slabs (2.15 GB each) and a thin
+#: z-slab
+ZX_SHAPES = ((2, 2, 512, 512, 512), (2, 2, 128, 1024, 1024),
+             (2, 2, 32, 2048, 2048))
+Y_SHAPES = ((2, 2, 512, 512, 512), (2, 2, 1024, 128, 1024),
+            (2, 2, 2048, 32, 2048), (2, 2, 512, 8, 512))
+#: correctness only, (kernel, shape, offset in floats of the data from a
+#: 16-byte boundary): every n of the column kernel, the ragged last tile
+#: (Bz * X, or n for zx's z pass, not a multiple of the tile's 32, 16 or 8
+#: columns; n = 16 a tile wider than the plane), Bz * X not a multiple of
+#: 4 and data on an 8-byte but not a 16-byte boundary
+SMALL = (("zx", (1, 2, 3, 16, 16), 0), ("zx", (1, 2, 3, 32, 32), 0),
+         ("zx", (1, 2, 3, 64, 64), 0), ("zx", (1, 2, 3, 128, 128), 0),
+         ("zx", (1, 2, 3, 256, 256), 0), ("zx", (1, 2, 4, 1024, 1024), 0),
+         ("zx", (1, 2, 2, 2048, 2048), 0),
+         ("y", (1, 2, 16, 3, 16), 0), ("y", (1, 2, 16, 3, 16), 2),
+         ("y", (1, 2, 32, 3, 10), 0), ("y", (2, 2, 64, 5, 12), 0),
+         ("y", (1, 2, 256, 3, 20), 0), ("y", (1, 2, 512, 3, 20), 0),
+         ("y", (1, 2, 1024, 1, 36), 0), ("y", (1, 2, 2048, 1, 20), 0),
+         ("y", (1, 2, 2048, 3, 2), 0), ("zx", (1, 2, 3, 512, 512), 2))
 
 #: the f_NL configuration: local non-Gaussianity of a Planck-like cosmology
 FNL = dict(ZD_f_NL="30.0", ZD_n_s="0.96", Omega_M="0.3")
@@ -157,6 +199,24 @@ def compare(k, p, tol, what):
     return err
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(moved: int, ops: float) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over the memory rate, or operations
+    over the float32 peak, whichever is larger."""
+    tb, to = 1e3 * moved / HBM_BPS, 1e3 * ops / F32_OPS
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def fft_ops(elems: int, n: int) -> float:
+    """5 N log2 N operations a complex DFT of length n, for `elems`
+    complex elements transformed along that axis."""
+    return 5.0 * elems * math.log2(n)
+
+
 def counted(name, fn):
     """fn() with a check that it launched kernel `name` exactly once."""
     import torch
@@ -184,8 +244,17 @@ def phase_card():
     kernels.library()
     say(f"built {kernels.LIB.name} from {len(kernels._sources())} sources: "
         f"nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s")
-    for line in kernels.ptxas_report():
+    report = kernels.ptxas_report()
+    for line in report:
         say("  ptxas " + line)
+    # the axis DFTs (zx, y) keep their elements in registers: no stack
+    # frame (a register array indexed at run time lands there), no spills
+    axis = [ln for ln in report if "axis_" in ln.split(":")[0] and "spill" in ln]
+    check(len(axis) == 16, f"ptxas reported {len(axis)} axis DFT kernels, want 16")
+    for ln in axis:
+        check(ln.split(": ", 1)[1].startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+            f"local memory in an axis DFT kernel: {ln}")
 
 
 def phase_kernels():
@@ -244,67 +313,91 @@ def phase_fullgrid_kernels():
     a = (m.tables, m.pk_eff, False)
     times["b4"] = _turns(lambda: halfspace_boxmuller(*a),
                          lambda: halfspace_boxmuller_plain(*a))
+    tb = m.tables
+    times["b4"] = (*times["b4"], None, bound(
+        3 * nbytes(m.pk_eff) + nbytes(tb.planes64, tb.mzx64, tb.czx64),
+        DRAW_OPS * m.pk_eff.numel()))
     say(f"  B4 512^3 f32: kernel {times['b4'][0]:.3f} ms, plain {times['b4'][1]:.3f} ms")
     del m, a
     torch.cuda.empty_cache()
 
+    from zeldovich_tpu_torch.ops.synth import twiddles
+
     gen = torch.Generator(device="cuda").manual_seed(2024)
-    cases = [
-        ("zx", zx_dft, zx_dft_plain, (2, 2, 512, 512, 512)),
-        ("zx", zx_dft, zx_dft_plain, (1, 2, 4, 1024, 1024)),
-        ("zx", zx_dft, zx_dft_plain, (1, 2, 2, 2048, 2048)),
-        ("y", y_dft, y_dft_plain, (2, 2, 512, 512, 512)),
-        ("y", y_dft, y_dft_plain, (2, 2, 512, 8, 512)),
-    ]
-    for name, fn, plain, shape in cases:
-        say(f"== phase 4: {name}_dft vs torch.fft, {shape}")
-        x = torch.randn(shape, device="cuda", generator=gen)
+
+    def placed(shape, off):
+        """Random data of `shape`, starting `off` floats into a buffer."""
+        buf = torch.randn(math.prod(shape) + off, device="cuda", generator=gen)
+        return buf[off:].view(shape)
+
+    cases = ([("zx", s, 0) for s in ZX_SHAPES] + [("y", s, 0) for s in Y_SHAPES]
+             + list(SMALL))
+    fns = {"zx": (zx_dft, zx_dft_plain, (-2, -1)), "y": (y_dft, y_dft_plain, (-3,))}
+    for name, shape, off in cases:
+        fn, plain, dims = fns[name]
+        say(f"== phase 4: {name}_dft vs plain, {shape}" + (f", {off} floats off" if off else ""))
+        x = placed(shape, off)
+        out = torch.empty_like(x)
         for sign in (+1, -1):
-            k = counted(f"{name}_dft", lambda: fn(x, sign))
             p = plain(x, sign)
+            k = counted(f"{name}_dft", lambda: fn(x, sign, out=out))
             err = compare(k, p, DFT_TOL, f"{name}_dft sign {sign:+d}")
-            if shape[-3:] == (512, 512, 512):
-                errs[name] = max(errs.get(name, 0.0), err)
-            del k, p
-        t = _turns(lambda: fn(x, +1), lambda: plain(x, +1))
-        say(f"  {name}_dft {shape} f32: kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms")
-        if shape[-3:] == (512, 512, 512):
-            times[name] = t
-            inplace = x.clone()
-            check(counted(f"{name}_dft", lambda: fn(inplace, +1, inplace)) is inplace,
+            inplace = placed(shape, off)
+            inplace.copy_(x)
+            check(counted(f"{name}_dft", lambda: fn(inplace, sign, inplace)) is inplace,
                   "in-place call returned another tensor")
-            compare(inplace, plain(x, +1), DFT_TOL, f"{name}_dft in place")
-            del inplace
-        del x
+            err = max(err, compare(inplace, p, DFT_TOL, f"{name}_dft sign {sign:+d} in place"))
+            if shape == (2, 2, 512, 512, 512):
+                errs[name] = max(errs.get(name, 0.0), err)
+            del k, p, inplace
+        if (name, shape, off) in SMALL:
+            continue
+        c = torch.complex(x[:, 0], x[:, 1])  # the library call's operand, once
+        n = shape[-1] if name == "zx" else shape[2]
+        t = _turns(lambda: fn(x, +1, out=out), lambda: plain(x, +1, out=out),
+                   library=lambda: torch.fft.ifftn(c, dim=dims, norm="forward"))
+        b = bound(2 * nbytes(x) + nbytes(twiddles(n, x.device)),
+                  fft_ops(x.numel() // 2, n) * len(dims))
+        say(f"  {name}_dft {shape} f32: kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms, "
+            f"library {t[2]:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / t[0]:.1f}% of it")
+        if shape == (2, 2, 512, 512, 512):
+            times[name] = (*t, b)
+        del x, out, c
         torch.cuda.empty_cache()
     return errs, times
 
 
-def _time(fn):
-    """One call of fn, in ms, between CUDA events."""
+def _time(fn, reps=5):
+    """ms a call of fn: `reps` calls between two CUDA events."""
     import torch
 
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    out = fn()
+    for _ in range(reps):
+        out = fn()
+        del out
     b.record()
     torch.cuda.synchronize()
-    del out
-    return a.elapsed_time(b)
+    return a.elapsed_time(b) / reps
 
 
-def _turns(kernel_fn, plain_fn, rounds=3):
-    """Medians over rounds of plain, kernel, kernel, plain (after warm-up)."""
+def _turns(kernel_fn, plain_fn, rounds=3, library=None):
+    """Medians over rounds of plain, kernel, kernel, plain (after warm-up),
+    and of the library call's where one is given (then a third entry)."""
     import statistics
 
     kernel_fn(), plain_fn()
-    ks, ps = [], []
+    ks, ps, ls = [], [], []
     for _ in range(rounds):
         ps.append(_time(plain_fn))
         ks.append(_time(kernel_fn))
         ks.append(_time(kernel_fn))
         ps.append(_time(plain_fn))
-    return statistics.median(ks), statistics.median(ps)
+        if library is not None:
+            ls.append(_time(library))
+    out = statistics.median(ks), statistics.median(ps)
+    return out if library is None else (*out, statistics.median(ls))
 
 
 def _peak(step, ppd, what):
@@ -346,7 +439,18 @@ def phase_timing():
                 + (f"; {ppd**3 / k / 1e3:.1f} vs {ppd**3 / p / 1e3:.1f} Mpart/s"
                    if name == "step" else ""))
         if not plt:
-            per_kernel = {"b1": b1, "b2": b2}
+            g = halfspace_pack_zx(*a)
+            x = c2r_y(g, ppd)
+            tb, half = m.tables, ppd // 2
+            b1b = bound(nbytes(m.pk_eff, tb.planes64, tb.mzx64, tb.czx64, g),
+                        DRAW_OPS * half * ppd * ppd + 2 * fft_ops(g.numel() // 2, ppd))
+            b2b = bound(nbytes(g, x), fft_ops(g.numel() // 2, ppd))
+            # the library call: one irfft of the two packed fields along y
+            c = torch.complex(g[:, :, 0], g[:, :, 1])
+            lib = _time(lambda: torch.fft.irfft(c, n=ppd, dim=-3, norm="forward"))
+            say(f"  {tag} B2 library call (torch.fft.irfft): {lib:.3f} ms")
+            per_kernel = {"b1": (*b1, None, b1b), "b2": (*b2, lib, b2b)}
+            del g, x, c
         del m, a
         torch.cuda.empty_cache()
 
@@ -439,6 +543,10 @@ def phase_b5():
             del k, p
         times[y0] = _turns(lambda: boxmuller(m.tables, *ops, False),
                            lambda: boxmuller_plain(m.tables, *ops, False))
+        tb = m.tables
+        times[y0] = (*times[y0], None, bound(
+            nbytes(*ops, tb.planes64, tb.mzx64, tb.czx64) + 2 * nbytes(ops[3]),
+            DRAW_OPS * ops[0].numel()))
         say(f"  B5 y0={y0} ({where}) 16.8M modes f32: kernel "
             f"{times[y0][0]:.3f} ms, plain {times[y0][1]:.3f} ms")
         del ops
@@ -483,6 +591,11 @@ def phase_b3():
         ms = _turns(lambda: halfspace_pack(*a),
                     lambda: pack_half_raw(m.cfg, m.tables, torch.float32,
                                           m.pk_eff, m.plt_coefs))
+        tb, half = m.tables, ppd // 2
+        ms = (*ms, None, bound(
+            nbytes(m.pk_eff, tb.planes64, tb.mzx64, tb.czx64)
+            + m.cfg.narray * 4 * (half + 1) * ppd * ppd * 4,
+            DRAW_OPS * half * ppd * ppd))
         say(f"  B3 {tag}: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms")
         sep = m.xspace_half_pair(m.kspace_half_pair())
         fused = m.xspace_half_pair()
@@ -578,7 +691,7 @@ def _pass2_at(m, stage):
     gather = 1e3 * (time.perf_counter() - t0)
     dev = torch.empty(src.shape, dtype=torch.float32, device="cuda")
     h2d = _time(lambda: dev.copy_(pinned, non_blocking=True))
-    y = _time(lambda: y_dft(dev, +1, out=dev))
+    y = _time(lambda: y_dft(dev, +1, out=dev), reps=1)
     d2h = _time(lambda: pinned.copy_(dev, non_blocking=True))
     setup_output_dir(m.param)
     aw = AsyncSlabWriter(OutputWriter(m.param))
@@ -907,10 +1020,12 @@ def main() -> int:
     card = smi()
 
     def entry(name, source, replaces, err, ms, **more):
+        kernel_ms, plain_ms, library_ms, b = ms
         return {"name": name, "route": "cuda",
                 "source": f"zeldovich_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1], **more}
+                "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, **b,
+                "library_ms": library_ms, **more}
 
     summary = {"kernels": [
         entry("halfspace_pack_zx", "synth.cu", "zeldovich_tpu/ops/pallas_synth.py:946",
@@ -933,7 +1048,10 @@ def main() -> int:
         "(max_abs_err and ms at 512^3 f32: B1/B2 the plain half step, B4 the "
         "plain configuration's half space, zx/y a (2, 2, 512, 512, 512) grid, "
         "B5 the 64-row chunk of the y0 = 0 slab (max_abs_err over three "
-        "slabs), B3 the plain configuration's packed half spectrum)")
+        "slabs), B3 the plain configuration's packed half spectrum; library_ms "
+        "torch.fft.irfft for B2, ifftn/ifft for zx/y; bound_ms at "
+        f"{HBM_BPS / 1e12:g} TB/s and {F32_OPS / 1e12:g} TFLOP/s, draw work "
+        f"counted as {DRAW_OPS} operations a mode)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"ok": True, "device": {

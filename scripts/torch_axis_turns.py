@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Trees of the PyTorch + CUDA port on one GPU, in turns A, B, B, A.
+
+    python3 scripts/torch_axis_turns.py A_ROOT B_ROOT [C_ROOT ...] [--out FILE]
+
+With more than two trees the turns go forward and back: A, B, C, C, B, A.
+
+Each turn is a fresh process that imports ``zeldovich_tpu_torch`` from
+its tree's root (building that tree's kernels into its own ``_build/``)
+and measures, float32, CUDA events around several launches:
+
+* zx_dft and y_dft at the shapes the paths launch (chip_smoke.py's
+  ZX_SHAPES and Y_SHAPES), out of place, sign +1, and zx's z pass alone
+  (y_dft on (B K, 2, n, 1, n): the same tiles, columns and strides as the
+  column kernel's launch inside zx_dft on (B, 2, K, n, n));
+* B1 (halfspace_pack_zx) and B2 (c2r_y) at 512^3 plain;
+* one 512^3 f_NL full-grid step: the wall of the step (median of 5) and
+  its device time by kernel (torch.profiler).
+
+Each turn prints one JSON line; the parent process prints every turn and a table
+of medians per tree, and writes all turns to --out (JSON).  Compare trees
+only within one call: the card and its power limit are printed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ZX_SHAPES = ((2, 2, 512, 512, 512), (2, 2, 128, 1024, 1024), (2, 2, 32, 2048, 2048))
+Y_SHAPES = ((2, 2, 512, 512, 512), (2, 2, 1024, 128, 1024), (2, 2, 2048, 32, 2048))
+ZCOLS_SHAPES = tuple((b * k, 2, n, 1, n) for b, _, k, n, _ in ZX_SHAPES)
+
+
+def _per_call(fn, reps):
+    import torch
+
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def worker(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.ops.c2r import c2r_y
+    from zeldovich_tpu_torch.ops.fft import y_dft, zx_dft
+    from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx
+
+    assert Path(kernels.__file__).resolve().is_relative_to(root.resolve())
+    kernels.library()
+    res = {"root": str(root), "zx": {}, "y": {}, "zcols": {}}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, fn, shapes in (("zx", zx_dft, ZX_SHAPES), ("y", y_dft, Y_SHAPES),
+                             ("zcols", y_dft, ZCOLS_SHAPES)):
+        for shape in shapes:
+            x = torch.randn(shape, device="cuda", generator=gen)
+            out = torch.empty_like(x)
+            res[name][str(shape)] = _per_call(lambda: fn(x, +1, out=out), 10)
+            del x, out
+            torch.cuda.empty_cache()
+
+    m = cs.model_for(512, False, device="cuda")
+    a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
+    res["b1"] = _per_call(lambda: halfspace_pack_zx(*a), 10)
+    g = halfspace_pack_zx(*a)
+    res["b2"] = _per_call(lambda: c2r_y(g, 512), 10)
+    del m, a, g
+    torch.cuda.empty_cache()
+
+    m = cs.model_for(512, False, device="cuda", **cs.FNL)
+    _ = m.pk_eff
+    m.xspace_pair()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        walls.append(_per_call(lambda: m.xspace_pair(), 1))
+    res["fnl_step_ms"] = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        m.xspace_pair()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by[e.key[:90]] = by.get(e.key[:90], 0.0) + e.self_device_time_total / 1e3
+    res["fnl_device_ms"] = sum(by.values())
+    res["fnl_kernels"] = dict(sorted(by.items(), key=lambda kv: -kv[1])[:8])
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("roots", nargs="*")
+    ap.add_argument("--worker", default=None)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if args.worker:
+        print("TURN " + json.dumps(worker(Path(args.worker))), flush=True)
+        return 0
+    roots = [Path(r).resolve() for r in args.roots]
+    if len(roots) < 2:
+        ap.error("give two or more trees")
+    labels = [chr(ord("A") + i) for i in range(len(roots))]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    print(card.stdout.strip(), flush=True)
+    turns = []
+    order = list(zip(labels, roots))
+    for label, root in order + order[::-1]:
+        proc = subprocess.run([sys.executable, __file__, "--worker", str(root)],
+                              capture_output=True, text=True, cwd=root)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        res = json.loads(proc.stdout.split("TURN ", 1)[1])
+        res["tree"] = label
+        turns.append(res)
+        print(f"{label} {json.dumps(res)}", flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"card": card.stdout.strip(), "turns": turns}))
+
+    def med(label, get):
+        return statistics.median(get(r) for r in turns if r["tree"] == label)
+
+    rows = [(f"{n} {s}", lambda r, n=n, s=s: r[n][str(s)])
+            for n, shapes in (("zx", ZX_SHAPES), ("y", Y_SHAPES), ("zcols", ZCOLS_SHAPES))
+            for s in shapes]
+    rows += [("B1 512^3", lambda r: r["b1"]), ("B2 512^3", lambda r: r["b2"]),
+             ("512^3 f_NL step wall", lambda r: r["fnl_step_ms"]),
+             ("512^3 f_NL step device", lambda r: r["fnl_device_ms"])]
+    print(f"{'ms (median of 2 turns)':40s}" + "".join(f"{x:>10s}" for x in labels))
+    for what, get in rows:
+        print(f"{what:40s}" + "".join(f"{med(x, get):10.3f}" for x in labels))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,7 +38,7 @@ def _tables(ppd, seed=24680):
     N = lambda tup: tuple(np.asarray(a) for a in tup)
     port, _, _ = tables_from_jax(
         N(j.planes), N(j.mz), N(j.cz), N(j.mx), N(j.cx), N(j.mzx), N(j.czx),
-        np.asarray(j.pk_n2),
+        np.asarray(j.pk_n2), device="cpu"
     )
     return j, port
 

@@ -1,4 +1,5 @@
-"""The port's CLI: it never loads jax, and its error paths exit 1."""
+"""The port's CLI: it never loads jax nor any module of the JAX package
+(zeldovich_tpu), and its error paths exit 1."""
 
 import os
 import subprocess
@@ -33,24 +34,41 @@ def _write_par(path, outdir, ppd=16, **over):
     return path
 
 
-def _run_without_jax(tmp_path, par, *flags):
-    """The CLI in a fresh interpreter; asserts jax never loaded."""
-    code = (
-        "import sys\n"
-        "import zeldovich_tpu_torch\n"
-        "from zeldovich_tpu_torch.cli import main\n"
-        f"rc = main([{str(par)!r}, '--device', 'cpu', *{list(flags)!r}])\n"
-        "jax = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
-        "print('JAXMODS', jax)\n"
-        "sys.exit(rc if not jax else 3)\n"
-    )
+#: prints the loaded modules of jax and of the JAX package, exits 3 if any
+_CHECK_MODULES = (
+    "jax = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+    "zt = sorted(m for m in sys.modules if m.split('.')[0] == 'zeldovich_tpu')\n"
+    "print('JAXMODS', jax)\n"
+    "print('ZTMODS', zt)\n"
+    "sys.exit(rc if not jax and not zt else 3)\n"
+)
+
+
+def _run_python(tmp_path, code):
     proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
-        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        [sys.executable, "-c", "import sys\n" + code + _CHECK_MODULES], cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAXMODS []" in proc.stdout
+    assert "ZTMODS []" in proc.stdout
     return proc
+
+
+def _run_without_jax(tmp_path, par, *calls):
+    """The CLI in a fresh interpreter, once for each list of flags in
+    calls (once without flags when none is given); asserts that neither
+    jax nor any zeldovich_tpu module ever loaded."""
+    calls = [list(c) for c in calls] or [[]]
+    code = (
+        "import zeldovich_tpu_torch\n"
+        "from zeldovich_tpu_torch.cli import main\n"
+        "rc = 0\n"
+        f"for flags in {calls!r}:\n"
+        f"    rc = rc or main([{str(par)!r}, '--device', 'cpu', *flags])\n"
+    )
+    return _run_python(tmp_path, code)
 
 
 def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
@@ -62,13 +80,33 @@ def test_import_and_cpu_run_leave_jax_unloaded(tmp_path):
 
 def test_out_of_core_disk_run_leaves_jax_unloaded(tmp_path):
     par = _write_par(tmp_path / "p.par", tmp_path / "ic")
-    proc = _run_without_jax(tmp_path, par, "--out-of-core", "--backing", "disk")
+    proc = _run_without_jax(tmp_path, par, ["--out-of-core", "--backing", "disk"])
     assert len(list((tmp_path / "ic").glob("ic_*"))) == 8
     assert not list((tmp_path / "ic").glob("*.mm"))
     assert "Out-of-core streamed run" in proc.stderr
 
 
 FNL = dict(ZD_f_NL=10.0, ZD_n_s=0.96, Omega_M=0.3)
+
+
+@pytest.mark.parametrize("flow", ["fnl", "v1", "part", "part_out_of_core"])
+def test_cpu_flows_leave_the_jax_package_unloaded(tmp_path, flow):
+    """f_NL and ZD_Version=1 (the full grid), --part 1 then --part 2 in
+    core and out of core: no module of jax or of zeldovich_tpu loads."""
+    over = {"fnl": dict(ZD_qPLT=0, **FNL), "v1": dict(ZD_qPLT=0, ZD_Version=1)}
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic", **over.get(flow, {}))
+    ooc = ["--out-of-core"] if flow == "part_out_of_core" else []
+    calls = [ooc + ["--part", "1"], ooc + ["--part", "2"]] if flow.startswith("part") else []
+    proc = _run_without_jax(tmp_path, par, *calls)
+    assert len(list((tmp_path / "ic").glob("ic_*"))) == 8
+    assert not list((tmp_path / "ic").glob("zeldovich.*"))
+    assert "zeldovich took" in proc.stderr
+
+
+def test_import_chip_smoke_leaves_the_jax_package_unloaded(tmp_path):
+    proc = _run_python(tmp_path, f"sys.path.insert(0, {str(REPO)!r})\n"
+                                 "import chip_smoke\nchip_smoke.phase_card\nrc = 0\n")
+    assert "ZTMODS []" in proc.stdout
 
 
 def test_f_nl_runs_on_the_cpu(tmp_path, capsys):

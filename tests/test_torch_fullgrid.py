@@ -77,16 +77,16 @@ def test_tables_carry_M_n2():
     p = _param(16, **FNL)
     jm = JZeldovich(p, dtype=jnp.float64)
     want = np.asarray(jm.tables.M_n2)
-    port = Zeldovich(p, dtype=torch.float64).tables
+    port = Zeldovich(p, dtype=torch.float64, device="cpu").tables
     np.testing.assert_array_equal(port.M_n2.numpy(), want)
     t = jm.tables
     N = lambda tup: tuple(np.asarray(a) for a in tup)
     carried, _, _ = tables_from_jax(
         N(t.planes), N(t.mz), N(t.cz), N(t.mx), N(t.cx), N(t.mzx), N(t.czx),
-        np.asarray(t.pk_n2), M_n2=want,
+        np.asarray(t.pk_n2), M_n2=want, device="cpu"
     )
     np.testing.assert_array_equal(carried.M_n2.numpy(), want)
-    assert SynthTables.build(1, 16, np.asarray(t.pk_n2)).M_n2 is None
+    assert SynthTables.build(1, 16, np.asarray(t.pk_n2), device="cpu").M_n2 is None
 
 
 @pytest.mark.parametrize("pass_", ["gen_phi", "phi_pair"])
@@ -94,7 +94,7 @@ def test_tables_carry_M_n2():
 def test_synthesize_full_fast_pair_matches_jax(pass_, dtype):
     p = _param(16, **FNL, **PLT)
     jm = JZeldovich(p, dtype=getattr(jnp, dtype))
-    m = Zeldovich(p, dtype=getattr(torch, dtype))
+    m = Zeldovich(p, dtype=getattr(torch, dtype), device="cpu")
     kw, jkw = {}, {}
     if pass_ == "gen_phi":
         kw, jkw = dict(gen_phi=True), dict(gen_phi=True)
@@ -114,7 +114,7 @@ def test_synthesize_full_fast_pair_matches_jax(pass_, dtype):
 def test_xspace_pair_matches_jax(case, dtype):
     p = _param(32, **CASES[case])
     want = np.asarray(JZeldovich(p, dtype=getattr(jnp, dtype)).xspace_pair())
-    m = Zeldovich(p, dtype=getattr(torch, dtype))
+    m = Zeldovich(p, dtype=getattr(torch, dtype), device="cpu")
     assert not m.half_exact
     got = m.xspace_half_pair().numpy()  # falls back to the full grid
     assert got.shape == (m.cfg.narray, 2, 32, 32, 32)
@@ -123,8 +123,9 @@ def test_xspace_pair_matches_jax(case, dtype):
 
 def test_f_nl_term_is_visible():
     """f_NL = 30 moves x space by far more than the f32 tolerance."""
-    with_fnl = Zeldovich(_param(32, **FNL)).xspace_pair().numpy()
-    without = Zeldovich(_param(32, **dict(FNL, ZD_f_NL=0.0))).xspace_pair().numpy()
+    with_fnl = Zeldovich(_param(32, **FNL), device="cpu").xspace_pair().numpy()
+    without = Zeldovich(_param(32, **dict(FNL, ZD_f_NL=0.0)),
+                        device="cpu").xspace_pair().numpy()
     assert np.abs(with_fnl - without).max() > 1e-3 * np.abs(without).max()
 
 
@@ -132,11 +133,11 @@ def test_version1_matches_jax_complex_path():
     p = _param(16, ZD_Version=1)
     x = np.asarray(JZeldovich(p, dtype=jnp.float64).xspace())
     want = np.stack([x.real, x.imag], axis=1)
-    m = Zeldovich(p, dtype=torch.float64)
+    m = Zeldovich(p, dtype=torch.float64, device="cpu")
     assert not m.half_exact
     got = m.xspace_half_pair().numpy()
     _close(got, want, "float64")
-    v2 = Zeldovich(_param(16), dtype=torch.float64).xspace_half_pair().numpy()
+    v2 = Zeldovich(_param(16), dtype=torch.float64, device="cpu").xspace_half_pair().numpy()
     assert np.abs(got - v2).max() > 0.1 * np.abs(v2).max()
 
 

@@ -67,6 +67,7 @@ def _carry(m):
         N(t.planes), N(t.mz), N(t.cz), N(t.mx), N(t.cx), N(t.mzx), N(t.czx),
         np.asarray(t.pk_n2), None if t.eig is None else np.asarray(t.eig),
         pk_eff=np.asarray(m.pk_eff), plt_coefs=None if coefs is None else N(coefs),
+        device="cpu"
     )
     return SynthConfig.from_params(m.param, m.Pk.fixed_power), tables, pk, pc
 
@@ -90,7 +91,7 @@ def test_b3_plain_matches_pallas_interpret(ppd, case):
 
 
 def test_b3_has_no_plain_route_off_the_cpu():
-    m = Zeldovich(_param(16))
+    m = Zeldovich(_param(16), device="cpu")
     with pytest.raises(ValueError, match="no kernel"):
         halfspace_pack(m.cfg, m.tables, torch.empty((8, 16, 16), device="meta"))
 
@@ -99,7 +100,7 @@ def test_b3_has_no_plain_route_off_the_cpu():
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_separate_kernel_half_route(case, dtype):
     p = _param(16, **CASES[case])
-    m = Zeldovich(p, dtype=getattr(torch, dtype))
+    m = Zeldovich(p, dtype=getattr(torch, dtype), device="cpu")
     spm = m.kspace_half_pair()
     got = m.xspace_half_pair(spm).numpy()
     fused = m.xspace_half_pair().numpy()
@@ -117,6 +118,6 @@ def test_separate_kernel_half_route(case, dtype):
 
 
 def test_kspace_half_pair_refuses_non_hermitian_configurations():
-    m = Zeldovich(_param(16, ZD_f_NL=10.0, ZD_n_s=0.96, Omega_M=0.3))
+    m = Zeldovich(_param(16, ZD_f_NL=10.0, ZD_n_s=0.96, Omega_M=0.3), device="cpu")
     with pytest.raises(NotImplementedError, match="full-grid"):
         m.kspace_half_pair()

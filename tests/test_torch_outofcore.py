@@ -91,7 +91,7 @@ def test_b5_plain_matches_pallas_interpret(fixed_power, dtype):
     N = lambda tup: tuple(np.asarray(a) for a in tup)
     port, _, _ = tables_from_jax(
         N(j.planes), N(j.mz), N(j.cz), N(j.mx), N(j.cx), N(j.mzx), N(j.czx),
-        np.asarray(j.pk_n2),
+        np.asarray(j.pk_n2), device="cpu"
     )
     rng = np.random.default_rng(5 + fixed_power)
     sy = rng.integers(0, ppd // 2, shape).astype(np.int32)
@@ -116,7 +116,7 @@ def test_b5_plain_matches_pallas_interpret(fixed_power, dtype):
 
 
 def test_b5_has_no_plain_route_off_the_cpu():
-    m = Zeldovich(_param(16))
+    m = Zeldovich(_param(16), device="cpu")
     i = torch.zeros((4, 16, 16), dtype=torch.int32, device="meta")
     f = torch.empty((4, 16, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -151,7 +151,7 @@ def test_synthesize_pair_slabs_match_jax_and_in_core(case, dtype):
     """The C1 test: every slab, mirror-half and straddling ones included."""
     over, kind = SYNTH[case]
     p = _param(16, **over)
-    m = Zeldovich(p, dtype=getattr(torch, dtype))
+    m = Zeldovich(p, dtype=getattr(torch, dtype), device="cpu")
     jm = JZeldovich(p, dtype=getattr(jnp, dtype))
     phi = None
     if kind.get("phi"):  # any phi(k): the input pass is linear in it
@@ -241,7 +241,7 @@ def test_out_of_core_run_matches_jax_in_core(tmp_path, case):
     _jax_in_core(_param(ppd, tmp_path / "jax", **OOC[case]), v1=case == "v1")
     p = _param(ppd, tmp_path / "ooc", **OOC[case])
     row = ppd * ppd * p.narray * 8
-    m = OutOfCoreZeldovich(p, slab_bytes=4 * row)
+    m = OutOfCoreZeldovich(p, slab_bytes=4 * row, device="cpu")
     assert m.slab == 4  # four y-slabs: generated half, ppd/2, mirror half
     m.run()
     _compare_outputs(tmp_path / "ooc", tmp_path / "jax")
@@ -253,7 +253,7 @@ def test_out_of_core_disk_stage_is_removed(tmp_path, case):
     _jax_in_core(_param(ppd, tmp_path / "jax", **OOC[case]))
     p = _param(ppd, tmp_path / "ooc", **OOC[case])
     m = OutOfCoreZeldovich(p, slab_bytes=ppd * ppd * p.narray * 8 * 8,
-                           backing="disk")
+                           backing="disk", device="cpu")
     assert m.slab == 8
     m.run()
     for name in ("zeldovich.stage.mm", "zeldovich.phi.mm"):

@@ -99,11 +99,11 @@ def test_sincos_2pi_fast_form():
 def test_synth_tables_equal_as_integers(ppd):
     pk_n2 = np.linspace(0.0, 1.0, 3 * (ppd // 2) ** 2 + 1)
     j = JSynthTables.build(4242, ppd, pk_n2)
-    port = SynthTables.build(4242, ppd, pk_n2)
+    port = SynthTables.build(4242, ppd, pk_n2, device="cpu")
     carried, _, _ = tables_from_jax(
         *(tuple(np.asarray(a) for a in getattr(j, f))
           for f in ("planes", "mz", "cz", "mx", "cx", "mzx", "czx")),
-        np.asarray(j.pk_n2),
+        np.asarray(j.pk_n2), device="cpu"
     )
     for f in ("planes", "mz", "cz", "mx", "cx", "mzx", "czx"):
         want = _as_np(getattr(j, f))
@@ -124,7 +124,7 @@ def test_first_draw_state_of_every_mode():
     """plane[y] * mzx + czx lands on each mode's first-draw state: against
     the JAX device stream everywhere, and the host scalar pcg64 on a few."""
     ppd, seed = 16, 12346
-    port = SynthTables.build(seed, ppd, np.zeros(3 * 64 + 1))
+    port = SynthTables.build(seed, ppd, np.zeros(3 * 64 + 1), device="cpu")
     j = JSynthTables.build(seed, ppd, np.zeros(3 * 64 + 1))
     half = ppd // 2
     got = tpcg.madd128(

@@ -55,7 +55,8 @@ def _write_par(path, ppd, outdir, **over):
 def test_xspace_half_pair_matches_jax(tmp_path, plt, dtype, tol):
     p = _param(32, tmp_path, **(PLT if plt else {}))
     want = np.asarray(JZeldovich(p, dtype=getattr(jnp, dtype)).xspace_half_pair())
-    got = Zeldovich(p, dtype=getattr(torch, dtype)).xspace_half_pair().numpy()
+    got = Zeldovich(p, dtype=getattr(torch, dtype),
+                    device="cpu").xspace_half_pair().numpy()
     assert got.shape == want.shape == (4 if plt else 2, 2, 32, 32, 32)
     np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
 
@@ -85,7 +86,7 @@ def test_cli_ic_files_match_jax_run_pair(tmp_path):
 
     # the QA statistics, and the CLI's bytes are run_pair's bytes
     p = _param(ppd, run_dir)
-    model = Zeldovich(p, dtype=torch.float32)
+    model = Zeldovich(p, dtype=torch.float32, device="cpu")
     got_qa = model.run_pair().report(model.Pk)
     assert got_qa["rms_density"] == pytest.approx(want_qa["rms_density"], rel=1e-6)
     np.testing.assert_allclose(got_qa["max_disp"], want_qa["max_disp"], rtol=1e-6)

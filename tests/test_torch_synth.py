@@ -58,6 +58,7 @@ def _carry(m):
         N(t.planes), N(t.mz), N(t.cz), N(t.mx), N(t.cx), N(t.mzx), N(t.czx),
         np.asarray(t.pk_n2), None if t.eig is None else np.asarray(t.eig),
         pk_eff=np.asarray(m.pk_eff), plt_coefs=None if coefs is None else N(coefs),
+        device="cpu"
     )
     return SynthConfig.from_params(m.param, m.Pk.fixed_power), tables, pk, pc
 
@@ -75,7 +76,7 @@ def test_pk_effective_bit_equal(dtype):
     p = _param(16, ZD_k_cutoff=2.0)
     m = JZeldovich(p, dtype=getattr(jnp, dtype))
     cfg = SynthConfig.from_params(p, m.Pk.fixed_power)
-    port = SynthTables.build(p.seed, p.ppd, np.asarray(m.tables.pk_n2))
+    port = SynthTables.build(p.seed, p.ppd, np.asarray(m.tables.pk_n2), device="cpu")
     got = tmr.pk_effective(cfg, port, getattr(torch, dtype)).numpy()
     np.testing.assert_array_equal(got, np.asarray(m.pk_eff))
 

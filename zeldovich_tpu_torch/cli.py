@@ -78,13 +78,12 @@ def main(argv=None):
               "float32", file=sys.stderr)
         return 1
 
-    from zeldovich_tpu.utils.output import OutputWriter, setup_output_dir
-    from zeldovich_tpu.utils.params import Parameters, ParameterError
-    from zeldovich_tpu.utils.parseheader import ParseError
-    from zeldovich_tpu.utils.timers import PhaseTimers
-
     from .models.pipeline import Zeldovich
+    from .utils.output import OutputWriter, setup_output_dir
+    from .utils.params import ParameterError, Parameters
+    from .utils.parseheader import ParseError
     from .utils.streamio import stream_xspace
+    from .utils.timers import PhaseTimers
 
     if args.part:
         print(f"This is zeldovich part {args.part}", file=sys.stderr)

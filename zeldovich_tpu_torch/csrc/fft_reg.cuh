@@ -1,0 +1,226 @@
+// Register-resident mixed-radix Stockham FFT for the axis DFTs
+// (csrc/fft_axis.cu), unnormalized, in the FFTW sign convention of the
+// JAX package; the sign is the twiddle table's.
+//
+// A length-N sequence (N a power of two in [16, 2048]) is transformed in
+// P <= 3 radix passes of radix 16, 8 or 4 (plan below):
+//
+//   N     16   32    64    128    256     512     1024     2048
+//   radix 16   8,4   8,8   16,8   16,16   8,8,8   16,8,8   16,16,8
+//
+// T = N / E threads share one sequence, E = the largest radix of the plan,
+// and each holds E elements in registers.  Pass p (radix R, Ns = the
+// product of the radices before it) takes, for each of the thread's E/R
+// butterflies j = t + b * T, the elements j + r * N/R (r < R), multiplies
+// element r by w^(r * (j mod Ns) * N/(Ns R)) (w = the table's
+// exp(sign 2 pi i / N)), runs a radix-R DFT in registers and leaves output
+// r for index (j / Ns) * Ns * R + (j mod Ns) + r * Ns (Govindaraju et al.,
+// SC 2008): the result is in natural order, with no bit reversal.  The
+// first pass reads j + r * N/R0 with j = t, and the last writes
+// j + r * N/R_last: both go straight between device memory and registers.
+// Shared memory carries only the P - 1 exchanges between passes.
+//
+// tests/test_torch_fft.py holds a plain torch model of exactly this
+// schedule (the same plan, index maps and table lookups) against torch.fft
+// and the JAX package's Pallas kernels at every N.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace zt {
+namespace reg {
+
+__host__ __device__ constexpr int npass(int n) { return n == 16 ? 1 : n >= 512 ? 3 : 2; }
+
+__host__ __device__ constexpr int radix(int n, int p) {
+  return p >= npass(n) ? 1
+         : n == 16   ? 16
+         : n == 32   ? (p == 0 ? 8 : 4)
+         : n == 64   ? 8
+         : n == 128  ? (p == 0 ? 16 : 8)
+         : n == 256  ? 16
+         : n == 512  ? 8
+         : n == 1024 ? (p == 0 ? 16 : 8)
+                     : (p == 2 ? 8 : 16);
+}
+
+// elements a thread holds: the first (largest) radix
+__host__ __device__ constexpr int elems(int n) { return radix(n, 0); }
+
+// product of the radices of passes before p
+__host__ __device__ constexpr int stride_before(int n, int p) {
+  return p == 0 ? 1 : stride_before(n, p - 1) * radix(n, p - 1);
+}
+
+__host__ __device__ constexpr int log2c(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+// the low `bits` bits of v reversed
+__host__ __device__ constexpr int brev(int v, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r |= ((v >> i) & 1) << (bits - 1 - i);
+  return r;
+}
+
+// cos(2 pi m / 16), the literals rounded once to float
+__host__ __device__ constexpr float cos16(int m) {
+  return (m & 15) == 0   ? 1.0f
+         : (m & 15) == 1 ? 0.923879532511286756f
+         : (m & 15) == 2 ? 0.707106781186547524f
+         : (m & 15) == 3 ? 0.382683432365089772f
+         : (m & 15) == 4 ? 0.0f
+         : (m & 15) < 8  ? -cos16(8 - (m & 15))
+                         : -cos16((m & 15) - 8);
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// a * exp(s 2 pi i K / L), L <= 16, s = +-1
+template <int L, int K>
+__device__ __forceinline__ float2 rot(float2 a, float s) {
+  constexpr int m = K * 16 / L;
+  if constexpr (m == 0) {
+    return a;
+  } else if constexpr (m == 4) {
+    return make_float2(-s * a.y, s * a.x);
+  } else {
+    constexpr float c = cos16(m), d = cos16(m + 12);  // cos, sin
+    return cmul(a, make_float2(c, s * d));
+  }
+}
+
+template <int L, int I, int OFF>
+__device__ __forceinline__ void dif_stage(float2* v, float s) {
+  if constexpr (I < L / 2) {
+    const float2 a = v[OFF + I], b = v[OFF + I + L / 2];
+    v[OFF + I] = make_float2(a.x + b.x, a.y + b.y);
+    v[OFF + I + L / 2] = rot<L, I>(make_float2(a.x - b.x, a.y - b.y), s);
+    dif_stage<L, I + 1, OFF>(v, s);
+  }
+}
+
+template <int L, int OFF>
+__device__ __forceinline__ void dif(float2* v, float s) {
+  if constexpr (L > 1) {
+    dif_stage<L, 0, OFF>(v, s);
+    dif<L / 2, OFF>(v, s);
+    dif<L / 2, OFF + L / 2>(v, s);
+  }
+}
+
+// Swaps v[OFF + K] with v[OFF + brev(K)]: every index a compile-time
+// constant, so the array stays in registers (a bit reversal computed at
+// run time would index it dynamically and move it to local memory).
+template <int R, int OFF, int K = 0>
+__device__ __forceinline__ void unscramble(float2* v) {
+  if constexpr (K < R) {
+    constexpr int J = brev(K, log2c(R));
+    if constexpr (K < J) {
+      const float2 x = v[OFF + K];
+      v[OFF + K] = v[OFF + J];
+      v[OFF + J] = x;
+    }
+    unscramble<R, OFF, K + 1>(v);
+  }
+}
+
+// In-register DFT of v[OFF, OFF + L), natural order in and out: radix-2
+// decimation in frequency, then the bit-reversal as register renaming.
+template <int L, int OFF>
+__device__ __forceinline__ void dft_regs(float2* v, float s) {
+  dif<L, OFF>(v, s);
+  unscramble<L, OFF>(v);
+}
+
+// w^k from the half table tw[j] = exp(sign 2 pi i j / N), j < N/2, k < N
+template <int N>
+__device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int k) {
+  const float2 w = __ldg(&tw[k & (N / 2 - 1)]);
+  return (k & (N / 2)) ? make_float2(-w.x, -w.y) : w;
+}
+
+// Butterfly B (and the ones after it) of pass P on the thread's
+// registers v[B * R + r], for j = t + B * T, in place.
+template <int N, int P, int B = 0>
+__device__ __forceinline__ void butterflies(float2* v, int t, const float2* __restrict__ tw,
+                                            float s) {
+  constexpr int R = radix(N, P), E = elems(N), T = N / E, NS = stride_before(N, P);
+  if constexpr (B < E / R) {
+    if constexpr (NS > 1) {
+      const int k = ((t + B * T) % NS) * (N / (NS * R));
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[B * R + r] = cmul(v[B * R + r], twiddle<N>(tw, r * k));
+    }
+    dft_regs<R, B * R>(v, s);
+    butterflies<N, P, B + 1>(v, t, tw, s);
+  }
+}
+
+// Float offset of index i of a sequence in a shared-memory plane: one
+// float of padding after every 2^S indices spreads the exchange's strided
+// accesses over the banks; STRIDE is the distance of consecutive indices
+// (the tile's width for columns, 1 for rows) and lane the sequence's own
+// offset.
+template <int S, int STRIDE>
+__device__ __forceinline__ int smem_at(int lane, int i) {
+  return lane + (i + (i >> S)) * STRIDE;
+}
+
+// Indices one sequence spans under smem_at<S, STRIDE> (in units of STRIDE).
+__host__ __device__ constexpr int padded(int n, int s) { return n + (n >> s); }
+
+// The exchange after pass P through the shared-memory planes sre, sim:
+// each output goes to its index (j / Ns) * Ns * R + (j mod Ns) + r * Ns,
+// then every thread reads the elements of pass P + 1's butterflies.  A
+// thread carries C sequences of adjacent lanes (lane, lane + 1), C = 1
+// or 2: v[c * E + e]; with C = 2 (lane even) each access moves the pair
+// as one 8-byte word.
+template <int N, int P, int S, int STRIDE, int C = 1>
+__device__ __forceinline__ void exchange(float2* v, int t, float* sre, float* sim, int lane) {
+  static_assert(C == 1 || C == 2, "one or two sequences a thread");
+  constexpr int R = radix(N, P), E = elems(N), T = N / E, NS = stride_before(N, P);
+  constexpr int R2 = radix(N, P + 1);
+  if constexpr (P > 0) __syncthreads();  // the last exchange's reads are done
+#pragma unroll
+  for (int b = 0; b < E / R; ++b) {
+    const int j = t + b * T;
+    const int d = (j / NS) * NS * R + j % NS;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int a = smem_at<S, STRIDE>(lane, d + r * NS);
+      const float2 x = v[b * R + r];
+      if constexpr (C == 2) {
+        const float2 y = v[E + b * R + r];
+        *reinterpret_cast<float2*>(sre + a) = make_float2(x.x, y.x);
+        *reinterpret_cast<float2*>(sim + a) = make_float2(x.y, y.y);
+      } else {
+        sre[a] = x.x;
+        sim[a] = x.y;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < E / R2; ++b) {
+#pragma unroll
+    for (int r = 0; r < R2; ++r) {
+      const int a = smem_at<S, STRIDE>(lane, t + b * T + r * (N / R2));
+      if constexpr (C == 2) {
+        const float2 re = *reinterpret_cast<const float2*>(sre + a);
+        const float2 im = *reinterpret_cast<const float2*>(sim + a);
+        v[b * R2 + r] = make_float2(re.x, im.x);
+        v[E + b * R2 + r] = make_float2(re.y, im.y);
+      } else {
+        v[b * R2 + r] = make_float2(sre[a], sim[a]);
+      }
+    }
+  }
+}
+
+}  // namespace reg
+}  // namespace zt

@@ -32,12 +32,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from zeldovich_tpu.utils.output import OutputWriter, setup_output_dir
-from zeldovich_tpu.utils.streamio import AsyncSlabWriter, _flush_chunk
-
 from ..ops.fft import y_dft, zx_dft
 from ..ops.modes_real import _reflect_zx, synthesize_pair
-from ..utils.streamio import slabs_to_device, stream_to_host
+from ..utils.output import OutputWriter, setup_output_dir
+from ..utils.streamio import (
+    AsyncSlabWriter, _flush_chunk, slabs_to_device, stream_to_host,
+)
 from .pipeline import Zeldovich, phi_nl
 
 
@@ -53,7 +53,7 @@ class OutOfCoreZeldovich(Zeldovich):
     """Streamed pipeline with a host-resident (or disk-memmapped) grid."""
 
     def __init__(self, param, dtype=torch.float32, slab_bytes=2 << 30,
-                 backing: str = "ram", device="cpu"):
+                 backing: str = "ram", device="cuda"):
         super().__init__(param, dtype=dtype, device=device)
         if backing not in ("ram", "disk"):
             raise ValueError(f"backing must be 'ram' or 'disk', got {backing!r}")

@@ -21,12 +21,6 @@ import sys
 import numpy as np
 import torch
 
-from zeldovich_tpu.utils.output import (  # noqa: F401 (output_dtype re-exported)
-    OutputWriter, output_dtype, setup_output_dir,
-)
-from zeldovich_tpu.utils.params import Parameters
-from zeldovich_tpu.utils.power import PowerSpectrum, mode_amplitude_tables
-
 from ..ops import plt as plt_ops
 from ..ops.c2r import c2r_y
 from ..ops.mmfft import fft3_pair, ifft3_half_pair, ifft3_pair
@@ -35,6 +29,11 @@ from ..ops.modes_real import (
     fix_ky0_packed, pk_effective, plt_coef_fields, synthesize_full_fast_pair,
 )
 from ..ops.synth import halfspace_pack, halfspace_pack_zx
+from ..utils.output import (  # noqa: F401 (output_dtype re-exported)
+    OutputWriter, output_dtype, setup_output_dir,
+)
+from ..utils.params import Parameters
+from ..utils.power import PowerSpectrum, mode_amplitude_tables
 
 
 def phi_nl(phi, f_NL: float, inv_n3: float):
@@ -55,7 +54,7 @@ def phi_nl(phi, f_NL: float, inv_n3: float):
 class Zeldovich:
     """Parameters -> displacement/velocity fields on ``device``."""
 
-    def __init__(self, param: Parameters, dtype=torch.float32, device="cpu"):
+    def __init__(self, param: Parameters, dtype=torch.float32, device="cuda"):
         self.param = param
         self.dtype = dtype
         self.device = torch.device(device)
@@ -71,8 +70,8 @@ class Zeldovich:
         )
         self._D_source = None
         if param.version == 1:
-            # the legacy MT19937 stream, generated on the host (jax-free)
-            from zeldovich_tpu.ops import v1
+            # the legacy MT19937 stream, generated on the host
+            from ..ops import v1
 
             D = v1.generate_D_half(param, self.Pk, pk_n2)
             self._D_source = torch.from_numpy(

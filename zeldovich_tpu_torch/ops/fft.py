@@ -84,6 +84,8 @@ def _kernel_args(pair, out, n, sign, what):
         out = torch.empty_like(pair)
     elif not out.is_contiguous():
         raise ValueError(f"{what} kernel: out must be contiguous")
+    if pair.data_ptr() % 8 or out.data_ptr() % 8:
+        raise ValueError(f"{what} kernel: want data on 8-byte boundaries")
     batch = math.prod(pair.shape[:-4])
     return out, twiddles(n, pair.device, sign), batch
 
@@ -104,7 +106,9 @@ def y_dft(pair, sign: int, out=None):
     _shape_y(pair, out)
     if pair.device.type == "cpu":
         return y_dft_plain(pair, sign, out)
-    n = pair.shape[-3]
+    n, inner = pair.shape[-3], pair.shape[-2] * pair.shape[-1]
+    if inner % 2:
+        raise ValueError(f"y_dft kernel: want an even Bz * X, got {inner}")
     out, tw, batch = _kernel_args(pair, out, n, sign, "y_dft")
-    kernels.launch_y_dft(pair, out, tw, n, pair.shape[-2] * pair.shape[-1], batch)
+    kernels.launch_y_dft(pair, out, tw, n, inner, batch)
     return out

@@ -4,7 +4,7 @@ Port of the host half of ``zeldovich_tpu/ops/modes.py``: ``SynthConfig``,
 ``zero_rules`` and ``SynthTables``.  The tables are the per-y-plane RNG
 start states and the precomposed, pre-bumped (z, x) affine jump maps, so
 that a mode's first-draw state is ONE 128-bit multiply-add
-``plane[y] * mzx[z, x] + czx[z, x]`` (see ``zeldovich_tpu/ops/pcg.py``).
+``plane[y] * mzx[z, x] + czx[z, x]`` (see ``ops/pcg.py``).
 
 Tables are held twice: as 4-tuples of int64 limb tensors (the plain
 tensor-op form, comparable limb for limb with the JAX package's u32
@@ -18,10 +18,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from zeldovich_tpu.ops import pcg
-from zeldovich_tpu.utils.params import Parameters
-
-from . import pcg_device
+from ..utils.params import Parameters
+from . import pcg, pcg_device
 
 
 @dataclass(frozen=True)
@@ -164,7 +162,7 @@ class SynthTables:
 
     @classmethod
     def build(cls, seed: int, ppd: int, pk_n2: np.ndarray, M_n2=None, eig=None,
-              device="cpu") -> "SynthTables":
+              device="cuda") -> "SynthTables":
         """Host pcg64 tables (ops/pcg.py) + the (z, x) compose on device."""
         mz, cz = pcg.prebump_axis_tables(
             *pcg.axis_affine_tables(ppd, 2 * pcg.MAX_PPD)
@@ -189,7 +187,7 @@ class SynthTables:
 
 
 def tables_from_jax(planes, mz, cz, mx, cx, mzx, czx, pk_n2, eig=None,
-                    pk_eff=None, plt_coefs=None, device="cpu", M_n2=None):
+                    pk_eff=None, plt_coefs=None, device="cuda", M_n2=None):
     """The JAX package's setup state, carried across as the port's tensors.
 
     Every table argument is a 4-tuple of u32 limb arrays (the JAX

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zeldovich_tpu.ops import pcg
+from . import pcg
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF

@@ -11,7 +11,8 @@ other's checkpoint:
                            validity marker)
 
 The chunks stream off the device one ahead (``stream_to_host``).
-``load_kspace`` and ``remove_kspace`` are the JAX package's (numpy only).
+``_chunk_y``, ``load_kspace`` and ``remove_kspace`` are copies of the JAX
+package's (numpy only).
 """
 
 from __future__ import annotations
@@ -21,11 +22,18 @@ from pathlib import Path
 
 import numpy as np
 
-from zeldovich_tpu.utils.checkpoint import _chunk_y, load_kspace, remove_kspace
-
 from .streamio import stream_to_host
 
 __all__ = ["save_kspace", "load_kspace", "remove_kspace"]
+
+
+def _chunk_y(shape, itemsize, target_bytes):
+    Y = shape[-3]
+    per_plane = int(np.prod(shape)) // Y * itemsize
+    want = max(1, min(Y, int(target_bytes // per_plane) or 1))
+    while Y % want:
+        want -= 1
+    return want
 
 
 def save_kspace(kgrid, path, target_bytes: int = 1 << 30) -> Path:
@@ -45,3 +53,20 @@ def save_kspace(kgrid, path, target_bytes: int = 1 << 30) -> Path:
         {"shape": list(kgrid.shape), "dtype": dtype.str, "chunk": chunk}
     ))
     return path
+
+
+def load_kspace(path) -> np.ndarray:
+    """Load a chunked checkpoint back into one host array."""
+    path = Path(path)
+    meta = json.loads((path / "meta.json").read_text())
+    shape, chunk = tuple(meta["shape"]), meta["chunk"]
+    out = np.empty(shape, dtype=np.dtype(meta["dtype"]))
+    for y0 in range(0, shape[-3], chunk):
+        out[..., y0 : y0 + chunk, :, :] = np.load(path / f"k_{y0:05d}.npy")
+    return out
+
+
+def remove_kspace(path):
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)

@@ -13,19 +13,91 @@ layout (narray, 2, Y, Z, X), and of the out-of-core streaming loops
   of two pinned buffers and copied non-blocking, so the host gather of
   slab i+1 overlaps the device's work on slab i;
 * ``stream_xspace(x, writer)``: an x-space grid in z-chunks of ~256 MB
-  through the same background ``AsyncSlabWriter`` / ``OutputWriter`` the
-  JAX package uses, so the ic_* bytes are produced by the same code from
-  the same float32 values.
+  through the background ``AsyncSlabWriter`` and ``OutputWriter``, copies
+  of the JAX package's (``AsyncSlabWriter``, ``_chunk_planes`` and
+  ``_flush_chunk`` from ``zeldovich_tpu/utils/streamio.py``), so the ic_*
+  bytes are produced by the same code from the same float32 values.
 
 On the CPU both directions are plain host copies.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+
 import numpy as np
 import torch
 
-from zeldovich_tpu.utils.streamio import AsyncSlabWriter, _chunk_planes, _flush_chunk
+
+class AsyncSlabWriter:
+    """Runs ``writer.write_slab`` calls on a background thread.
+
+    Submissions are FIFO (the density file and per-file appends require
+    z-order within each ic_* file); all writer-state mutation happens on
+    the one worker thread, so OutputWriter needs no locking.  Errors are
+    captured and re-raised on the submitting thread at the next submit()
+    or at close().
+    """
+
+    def __init__(self, writer, depth: int = 4):
+        self.writer = writer
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._error: BaseException | None = None
+        self._t = threading.Thread(
+            target=self._loop, daemon=True, name="zt-slab-writer"
+        )
+        self._t.start()
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self._error is None:
+                try:
+                    self.writer.write_slab(*item)
+                except BaseException as e:  # noqa: BLE001 - repropagated
+                    self._error = e
+
+    def submit(self, z: int, slab: np.ndarray):
+        if self._error is not None:
+            raise self._error
+        self._q.put((z, slab))
+
+    def close(self, close_writer: bool = True):
+        self._q.put(None)
+        self._t.join()
+        try:
+            if self._error is not None:
+                raise self._error
+        finally:
+            # close file handles even on a captured worker error (ENOSPC
+            # mid-run must not leak the density fp / parallel ic_* fds)
+            if close_writer:
+                self.writer.close()
+
+
+def _chunk_planes(shape, itemsize, ppd, pair, target_bytes):
+    """z-planes per fetch chunk: the largest divisor of ppd within ~target.
+
+    A divisor keeps every chunk the same shape (and the chunks the JAX
+    package's).
+    """
+    narray = shape[0]
+    per_plane = narray * (2 if pair else 1) * ppd * ppd * itemsize
+    want = max(1, min(ppd, int(target_bytes // per_plane) or 1))
+    while ppd % want:
+        want -= 1
+    return want
+
+
+def _flush_chunk(aw: AsyncSlabWriter, z0: int, c, pair: bool):
+    h = np.asarray(c)
+    if pair:
+        h = h[:, 0] + 1j * h[:, 1]
+    for dz in range(h.shape[2]):
+        aw.submit(z0 + dz, h[:, :, dz, :])
 
 
 def _pinned_like(buf, shape, dtype):
