@@ -10,10 +10,17 @@ script exits non-zero without printing a result:
 1. card: nvidia-smi name and power limit, torch and CUDA versions; build
    the kernels from csrc/ (one nvcc per source, in parallel) and print
    ptxas registers, shared memory, spills; fail on any stack frame or
-   spill in the 16 axis DFT kernels (zx, y);
+   spill in the register-resident FFT kernels: the 16 axis DFT kernels
+   (zx, y), B1's 8 pack_rows_kernel and B2's 8 column kernels;
 2. kernel B1 (halfspace_pack_zx) against its plain version on the card, at
    128^3 with example.par's PLT configuration and at 512^3 plain float32;
-3. kernel B2 (c2r_y) against its plain version on phase 2's outputs;
+   and small cases at every n in [16, 2048] (SMALL_N): plain, PLT, fixed
+   power and density only, on the generated planes [0, r) (the ky = 0
+   fixup) and [n/2 - r, n/2);
+3. kernel B2 (c2r_y) against its plain version on phase 2's outputs, out
+   of place and in place (out=g, the main path's call); and small cases
+   at every n in [16, 2048] with and without the Nyquist row, in place
+   and out of place, on (2, 2, 2, ky, 3, 20) (a ragged last tile);
 4. kernel B4 (halfspace_boxmuller) against its plain version at 512^3;
    zx_dft (B6/B7) and y_dft (B8) against their plain versions (torch.fft)
    at the shapes the paths launch: zx on the 512^3 full grid and the
@@ -24,10 +31,11 @@ script exits non-zero without printing a result:
    each path shape timed in turns plain, kernel, kernel, plain beside the
    single library call (torch.fft.ifftn / ifft on a complex64 tensor
    formed once, which the port never calls);
-5. the half-spectrum forward step (B1 + B2) timed against the plain route
-   (torch ops + torch.fft) with CUDA events, in turns plain, kernel,
-   kernel, plain: 512^3 plain, 512^3 PLT, and 1024^3 plain (kernel route,
-   peak memory);
+5. B1, B2 and the half-spectrum forward step (B1, then B2 in place:
+   ``Zeldovich.xspace_half_pair``) timed against the plain route (torch
+   ops + torch.fft) with CUDA events, in turns plain, kernel, kernel,
+   plain: 512^3 plain and 512^3 PLT; 1024^3 plain (kernel route alone:
+   B1, B2, the step and its peak memory);
 6. the full-grid forward step (B4, zx, y) timed the same way: 512^3 f_NL,
    512^3 f_NL + PLT, 512^3 CornerModes with k_cutoff = 2, a device
    profile of one 512^3 f_NL step, and 1024^3 f_NL (kernel route, peak
@@ -121,6 +129,13 @@ SMALL = (("zx", (1, 2, 3, 16, 16), 0), ("zx", (1, 2, 3, 32, 32), 0),
          ("y", (1, 2, 256, 3, 20), 0), ("y", (1, 2, 512, 3, 20), 0),
          ("y", (1, 2, 1024, 1, 36), 0), ("y", (1, 2, 2048, 1, 20), 0),
          ("y", (1, 2, 2048, 3, 2), 0), ("zx", (1, 2, 3, 512, 512), 2))
+
+#: B1 and B2 correctness cases: every n of the kernels
+SMALL_N = (16, 32, 64, 128, 256, 512, 1024, 2048)
+#: B1's configurations: name, PLT, extra .par keys
+B1_CONFIGS = (("plain", False, {}), ("PLT", True, {}),
+              ("fixed power", False, {"ZD_qPk_fix_to_mean": "1"}),
+              ("density only", False, {"ZD_qdensity": "2"}))
 
 #: the f_NL configuration: local non-Gaussianity of a Planck-like cosmology
 FNL = dict(ZD_f_NL="30.0", ZD_n_s="0.96", Omega_M="0.3")
@@ -247,14 +262,18 @@ def phase_card():
     report = kernels.ptxas_report()
     for line in report:
         say("  ptxas " + line)
-    # the axis DFTs (zx, y) keep their elements in registers: no stack
-    # frame (a register array indexed at run time lands there), no spills
-    axis = [ln for ln in report if "axis_" in ln.split(":")[0] and "spill" in ln]
-    check(len(axis) == 16, f"ptxas reported {len(axis)} axis DFT kernels, want 16")
-    for ln in axis:
-        check(ln.split(": ", 1)[1].startswith(
-            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
-            f"local memory in an axis DFT kernel: {ln}")
+    # the FFT kernels keep their elements in registers: no stack frame (a
+    # register array indexed at run time lands there), no spills
+    for what, has, want in (
+            ("axis DFT (zx, y)", lambda k: "axis_" in k and "C2rLoad" not in k, 16),
+            ("B1 pack_rows_kernel", lambda k: "pack_rows_kernel" in k, 8),
+            ("B2 axis_cols_kernel<C2rLoad>", lambda k: "C2rLoad" in k, 8)):
+        found = [ln for ln in report if has(ln.split(":")[0]) and "spill" in ln]
+        check(len(found) == want, f"ptxas reported {len(found)} {what} kernels, want {want}")
+        for ln in found:
+            check(ln.split(": ", 1)[1].startswith(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+                f"local memory in a {what} kernel: {ln}")
 
 
 def phase_kernels():
@@ -279,12 +298,75 @@ def phase_kernels():
         errs[("b1", ppd)] = compare(k, p, B1_TOL, f"B1 {tag} {tuple(k.shape)}")
         del p
         say(f"== phase 3: B2 vs plain, {tag}")
-        xk = counted("c2r_y", lambda: c2r_y(k, ppd))
         xp = c2r_y_plain(k, ppd)
+        xk = counted("c2r_y", lambda: c2r_y(k, ppd))
         errs[("b2", ppd)] = compare(xk, xp, B2_TOL, f"B2 {tag} {tuple(xk.shape)}")
+        del xk
+        xk = counted("c2r_y", lambda: c2r_y(k, ppd, out=k))
+        check(xk.data_ptr() == k.data_ptr(), "B2 in place returned another buffer")
+        compare(xk, xp, B2_TOL, f"B2 {tag} in place")
         del k, xk, xp, m
         torch.cuda.empty_cache()
+    small_b1()
+    small_b2()
     return errs
+
+
+def small_b1():
+    """Phase 2's small cases: B1 on a few generated planes at every n."""
+    import torch
+
+    from zeldovich_tpu_torch.ops.modes_real import pk_effective, plt_coef_fields
+    from zeldovich_tpu_torch.ops.synth import (
+        halfspace_pack_zx, halfspace_pack_zx_plain,
+    )
+
+    for n in SMALL_N:
+        half = n // 2
+        r = min(half, 8, max(2, (1 << 24) // (n * n)))
+        spans = [(0, r)] + ([(half - r, half)] if r < half else [])
+        for name, plt, extra in B1_CONFIGS:
+            m = model_for(n, plt, **extra)
+            for y0, y1 in spans:
+                pk = pk_effective(m.cfg, m.tables, torch.float32, (y0, y1))
+                coefs = (plt_coef_fields(m.cfg, m.tables, torch.float32, (y0, y1))
+                         if plt else None)
+                a = (m.cfg, m.tables, pk, coefs, y0)
+                k = counted("halfspace_pack_zx", lambda: halfspace_pack_zx(*a))
+                p = halfspace_pack_zx_plain(*a)
+                check(k.shape == p.shape, f"B1 shape {k.shape} != {p.shape}")
+                compare(k, p, B1_TOL, f"B1 n={n} {name} planes [{y0}, {y1})")
+                del k, p, pk, coefs, a
+            del m
+            torch.cuda.empty_cache()
+
+
+def small_b2():
+    """Phase 3's small cases: B2 on (2, 2, 2, ky, 3, 20) at every n, with
+    and without the Nyquist row, out of place, into a given buffer and
+    in place."""
+    import torch
+
+    from zeldovich_tpu_torch.ops.c2r import c2r_y, c2r_y_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for n in SMALL_N:
+        for nyq in (True, False):
+            spm = torch.randn((2, 2, 2, n // 2 + nyq, 3, 20), device="cuda", generator=gen)
+            p = c2r_y_plain(spm, n)
+            tag = f"B2 n={n} {'with' if nyq else 'without'} the Nyquist row"
+            compare(counted("c2r_y", lambda: c2r_y(spm, n)), p, B2_TOL, tag)
+            if nyq:
+                out = torch.empty(p.shape, device="cuda")
+                check(counted("c2r_y", lambda: c2r_y(spm, n, out=out)) is out,
+                      "B2 into out returned another tensor")
+                compare(out, p, B2_TOL, f"{tag} into out")
+            else:
+                g = spm.clone()
+                x = counted("c2r_y", lambda: c2r_y(g, n, out=g))
+                check(x.data_ptr() == g.data_ptr(), "B2 in place returned another buffer")
+                compare(x, p, B2_TOL, f"{tag} in place")
+            del spm, p
 
 
 def phase_fullgrid_kernels():
@@ -428,10 +510,11 @@ def phase_timing():
         m = model_for(ppd, plt)
         a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
         g = halfspace_pack_zx(*a)
+        buf = torch.empty((g.shape[0], 2, ppd, ppd, ppd), device="cuda")
         b1 = _turns(lambda: halfspace_pack_zx(*a), lambda: halfspace_pack_zx_plain(*a))
-        b2 = _turns(lambda: c2r_y(g, ppd), lambda: c2r_y_plain(g, ppd))
-        del g
-        step = _turns(lambda: c2r_y(halfspace_pack_zx(*a), ppd),
+        b2 = _turns(lambda: c2r_y(g, ppd, out=buf), lambda: c2r_y_plain(g, ppd))
+        del buf
+        step = _turns(lambda: m.xspace_half_pair(),
                       lambda: c2r_y_plain(halfspace_pack_zx_plain(*a), ppd))
         tag = f"{ppd}^3 {'PLT' if plt else 'plain'} f32"
         for name, (k, p) in (("B1", b1), ("B2", b2), ("step", step)):
@@ -439,24 +522,34 @@ def phase_timing():
                 + (f"; {ppd**3 / k / 1e3:.1f} vs {ppd**3 / p / 1e3:.1f} Mpart/s"
                    if name == "step" else ""))
         if not plt:
-            g = halfspace_pack_zx(*a)
-            x = c2r_y(g, ppd)
             tb, half = m.tables, ppd // 2
             b1b = bound(nbytes(m.pk_eff, tb.planes64, tb.mzx64, tb.czx64, g),
                         DRAW_OPS * half * ppd * ppd + 2 * fft_ops(g.numel() // 2, ppd))
-            b2b = bound(nbytes(g, x), fft_ops(g.numel() // 2, ppd))
+            b2b = bound(2 * nbytes(g), fft_ops(g.numel() // 2, ppd))
+            say(f"  {tag} B1 bound {b1b['bound_ms']:.3f} ms ({b1b['bound_by']}), "
+                f"{100 * b1b['bound_ms'] / b1[0]:.1f}% of it; three-pass design floor "
+                f"{1e3 * 3 * nbytes(g) / HBM_BPS:.3f} ms")
+            say(f"  {tag} B2 bound {b2b['bound_ms']:.3f} ms ({b2b['bound_by']}), "
+                f"{100 * b2b['bound_ms'] / b2[0]:.1f}% of it")
             # the library call: one irfft of the two packed fields along y
             c = torch.complex(g[:, :, 0], g[:, :, 1])
             lib = _time(lambda: torch.fft.irfft(c, n=ppd, dim=-3, norm="forward"))
             say(f"  {tag} B2 library call (torch.fft.irfft): {lib:.3f} ms")
             per_kernel = {"b1": (*b1, None, b1b), "b2": (*b2, lib, b2b)}
-            del g, x, c
-        del m, a
+            del c
+        del g, m, a
         torch.cuda.empty_cache()
 
     m = model_for(1024, False)
     a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
-    _peak(lambda: c2r_y(halfspace_pack_zx(*a), 1024), 1024, "1024^3 plain f32 step")
+    b1 = sorted(_time(lambda: halfspace_pack_zx(*a), reps=2) for _ in range(3))[1]
+    g = halfspace_pack_zx(*a)
+    buf = torch.empty((g.shape[0], 2, 1024, 1024, 1024), device="cuda")
+    b2 = sorted(_time(lambda: c2r_y(g, 1024, out=buf), reps=2) for _ in range(3))[1]
+    say(f"  1024^3 plain f32: B1 {b1:.3f} ms, B2 {b2:.3f} ms (kernel route)")
+    del g, buf
+    torch.cuda.empty_cache()
+    _peak(lambda: m.xspace_half_pair(), 1024, "1024^3 plain f32 step, B2 in place")
     del m, a
     torch.cuda.empty_cache()
     return per_kernel
@@ -1045,7 +1138,8 @@ def main() -> int:
               b3_err, b3_ms),
     ]}
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s "
-        "(max_abs_err and ms at 512^3 f32: B1/B2 the plain half step, B4 the "
+        "(max_abs_err and ms at 512^3 f32: B1/B2 the plain half step (B2 timed "
+        "into a buffer of its own), B4 the "
         "plain configuration's half space, zx/y a (2, 2, 512, 512, 512) grid, "
         "B5 the 64-row chunk of the y0 = 0 slab (max_abs_err over three "
         "slabs), B3 the plain configuration's packed half spectrum; library_ms "

@@ -13,9 +13,11 @@ and measures, float32, CUDA events around several launches:
   ZX_SHAPES and Y_SHAPES), out of place, sign +1, and zx's z pass alone
   (y_dft on (B K, 2, n, 1, n): the same tiles, columns and strides as the
   column kernel's launch inside zx_dft on (B, 2, K, n, n));
-* B1 (halfspace_pack_zx) and B2 (c2r_y) at 512^3 plain;
+* B1 (halfspace_pack_zx) and B2 (c2r_y, out of place) at 512^3 plain,
+  and the tree's 512^3 plain half step (``Zeldovich.xspace_half_pair``)
+  with its device time by kernel (torch.profiler);
 * one 512^3 f_NL full-grid step: the wall of the step (median of 5) and
-  its device time by kernel (torch.profiler).
+  its device time by kernel.
 
 Each turn prints one JSON line; the parent process prints every turn and a table
 of medians per tree, and writes all turns to --out (JSON).  Compare trees
@@ -49,11 +51,27 @@ def _per_call(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def worker(root: Path) -> dict:
-    sys.path.insert(0, str(root))
+def _by_kernel(fn) -> dict:
+    """Device ms by kernel of one call of fn (torch.profiler), largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by[e.key[:90]] = by.get(e.key[:90], 0.0) + e.self_device_time_total / 1e3
+    return dict(sorted(by.items(), key=lambda kv: -kv[1]))
+
+
+def worker(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
 
     import chip_smoke as cs
     from zeldovich_tpu_torch import kernels
@@ -79,7 +97,11 @@ def worker(root: Path) -> dict:
     res["b1"] = _per_call(lambda: halfspace_pack_zx(*a), 10)
     g = halfspace_pack_zx(*a)
     res["b2"] = _per_call(lambda: c2r_y(g, 512), 10)
-    del m, a, g
+    del g
+    torch.cuda.empty_cache()
+    res["half_step_ms"] = _per_call(lambda: m.xspace_half_pair(), 10)
+    res["half_kernels"] = _by_kernel(lambda: m.xspace_half_pair())
+    del m, a
     torch.cuda.empty_cache()
 
     m = cs.model_for(512, False, device="cuda", **cs.FNL)
@@ -90,15 +112,9 @@ def worker(root: Path) -> dict:
     for _ in range(5):
         walls.append(_per_call(lambda: m.xspace_pair(), 1))
     res["fnl_step_ms"] = statistics.median(walls)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        m.xspace_pair()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            by[e.key[:90]] = by.get(e.key[:90], 0.0) + e.self_device_time_total / 1e3
+    by = _by_kernel(lambda: m.xspace_pair())
     res["fnl_device_ms"] = sum(by.values())
-    res["fnl_kernels"] = dict(sorted(by.items(), key=lambda kv: -kv[1])[:8])
+    res["fnl_kernels"] = dict(list(by.items())[:8])
     return res
 
 
@@ -141,6 +157,8 @@ def main() -> int:
             for n, shapes in (("zx", ZX_SHAPES), ("y", Y_SHAPES), ("zcols", ZCOLS_SHAPES))
             for s in shapes]
     rows += [("B1 512^3", lambda r: r["b1"]), ("B2 512^3", lambda r: r["b2"]),
+             ("512^3 plain half step", lambda r: r["half_step_ms"]),
+             ("512^3 plain half step device", lambda r: sum(r["half_kernels"].values())),
              ("512^3 f_NL step wall", lambda r: r["fnl_step_ms"]),
              ("512^3 f_NL step device", lambda r: r["fnl_device_ms"])]
     print(f"{'ms (median of 2 turns)':40s}" + "".join(f"{x:>10s}" for x in labels))

@@ -7,6 +7,12 @@ torch.fft over (z, x).  Its reference is the Pallas kernel
 own tests run it, fed the identical setup state through
 ``tables_from_jax``.  The CUDA kernel itself is checked against the same
 plain version on the card by chip_smoke.py.
+
+``_b1_model`` is B1 as the kernel runs it (csrc/synth.cu): the raw
+packings (``pack_rows``), the index-pure ky=0 rule (a mirror-half element
+is the conjugate of its source mode's opposite packing), x in the row
+layout, then z in the column layout of the kernels' schedule
+(tests/torch_fft_model.py).
 """
 
 from pathlib import Path
@@ -24,7 +30,10 @@ from zeldovich_tpu.ops.pallas_synth import halfspace_pack_zx_pallas
 from zeldovich_tpu.utils.params import Parameters
 from zeldovich_tpu_torch.ops import modes_real as tmr
 from zeldovich_tpu_torch.ops.modes import SynthConfig, SynthTables, tables_from_jax
-from zeldovich_tpu_torch.ops.synth import check_kernel_size, halfspace_pack_zx
+from zeldovich_tpu_torch.ops.synth import (
+    check_kernel_size, halfspace_pack_zx, halfspace_pack_zx_plain,
+)
+from torch_fft_model import stockham
 
 torch.set_num_threads(1)
 
@@ -37,7 +46,7 @@ PLT = dict(
 )
 
 
-def _param(ppd, **over):
+def _keys(ppd, **over):
     d = dict(
         BoxSize=100.0, NP=ppd**3, CPD=100, ICFormat="RVZel",
         InitialConditionsDirectory="/tmp/ic_torch_synth", InitialRedshift=49.0,
@@ -46,7 +55,11 @@ def _param(ppd, **over):
         ZD_Pk_filename=str(ASSETS / "wmap1new.pow"), ZD_Version=2,
     )
     d.update(over)
-    return Parameters.from_dict(d)
+    return d
+
+
+def _param(ppd, **over):
+    return Parameters.from_dict(_keys(ppd, **over))
 
 
 def _carry(m):
@@ -157,3 +170,69 @@ def test_density_only_packs_one_array():
 def test_kernel_sizes_outside_the_range_raise(n):
     with pytest.raises(ValueError, match="ROADMAP"):
         check_kernel_size(n)
+
+
+# -- the kernel's two launches (csrc/synth.cu) ---------------------------------
+
+def _b1_model(cfg, tables, pk, coefs, ky0=0):
+    """(narray, 2, 2, rows, Z, X) for the planes [ky0, ky0 + rows)."""
+    raw = tmr.pack_rows(cfg, tables, torch.float32, pk, coefs, ky0)
+    c = torch.complex(raw[:, :, 0], raw[:, :, 1])  # (narray, pm, rows, Z, X)
+    if ky0 == 0:
+        n, h = cfg.ppd, cfg.ppd // 2
+        z, x = torch.arange(n)[:, None], torch.arange(n)[None, :]
+        mirror = (z > h) | ((z == 0) & (x > h))
+        zs = torch.where(z > h, n - z, z).expand(n, n)
+        xs = torch.where(mirror, (n - x) % n, x)
+        source = c[:, :, 0].flip(1)[:, :, zs, xs].conj()  # the opposite packing
+        plane = torch.where(mirror, source, c[:, :, 0])
+        plane[:, :, 0, 0] = 0.0  # the origin
+        c[:, :, 0] = plane
+    c = stockham(c, +1, "rows")  # launch 1: x, with the synthesis
+    c = stockham(c.transpose(-1, -2), +1, "cols").transpose(-1, -2)  # launch 2: z
+    return torch.stack([c.real, c.imag], dim=2)
+
+
+@pytest.mark.parametrize("ppd", [16, 32])
+@pytest.mark.parametrize("case", ["plain", "fixed", "plt"])
+def test_b1_model_matches_pallas_interpret(ppd, case):
+    over = {"plain": {}, "fixed": {"ZD_qPk_fix_to_mean": 1}, "plt": PLT}[case]
+    m = JZeldovich(_param(ppd, **over), dtype=jnp.float32)
+    cfg, tables, pk, coefs = _carry(m)
+    t = m.tables
+    want = np.asarray(halfspace_pack_zx_pallas(
+        m.cfg, t.planes, t.mzx, t.czx, m.pk_eff, fixed_power=m.cfg.fixed_power,
+        just_density=m.cfg.just_density, interpret=True, plt_coefs=m.plt_coefs,
+    ))[:, :, :, :ppd // 2]
+    got = _b1_model(cfg, tables, pk, coefs).numpy()
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    _assert_zero_pattern(got, want, 1e-6 * scale)
+
+
+@pytest.mark.parametrize("ppd", [64, 128])
+@pytest.mark.parametrize("case", ["plain", "plt", "density"])
+def test_b1_model_matches_plain_on_planes(ppd, case):
+    """The planes [0, 2) (the ky=0 rule) and [half - 1, half), each as a
+    call of its own (ky0), against the plain version of those planes and
+    the full plain version's."""
+    from zeldovich_tpu_torch.models.pipeline import Zeldovich
+    from zeldovich_tpu_torch.utils.params import Parameters as TParameters
+
+    over = {"plain": {}, "plt": PLT, "density": {"ZD_qdensity": 2}}[case]
+    m = Zeldovich(TParameters.from_dict(_keys(ppd, **over)), dtype=torch.float32,
+                  device="cpu")
+    half = ppd // 2
+    full = halfspace_pack_zx_plain(m.cfg, m.tables, m.pk_eff, m.plt_coefs)
+    for y0, y1 in ((0, 2), (half - 1, half)):
+        pk = tmr.pk_effective(m.cfg, m.tables, torch.float32, (y0, y1))
+        assert torch.equal(pk, m.pk_eff[y0:y1])
+        coefs = (tmr.plt_coef_fields(m.cfg, m.tables, torch.float32, (y0, y1))
+                 if case == "plt" else None)
+        want = halfspace_pack_zx_plain(m.cfg, m.tables, pk, coefs, y0)
+        torch.testing.assert_close(want, full[:, :, :, y0:y1], rtol=0,
+                                   atol=1e-6 * full.abs().max().item())
+        got = _b1_model(m.cfg, m.tables, pk, coefs, y0)
+        scale = want.abs().max().item()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5 * scale)

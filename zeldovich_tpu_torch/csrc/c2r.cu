@@ -3,95 +3,110 @@
 //
 // Replaces the Pallas TPU kernel
 //   zeldovich_tpu/ops/pallas_fft.py::c2r_y_folded_pallas
-// (bodies _c2r_kernel, _c2r_math).  Contract: in g (narray, 2, 2, ky, Z, X)
+// (bodies _c2r_kernel, _c2r_math).  Contract: in g (narray, 2, 2, ky, Bz, X)
 // float32 = (array, +/- packing, re/im, ky, z, x), z and x already
-// transformed; out (narray, 2, n, Z, X) float32 with re = D and im = F of
+// transformed, a full grid (Bz = Z) or a z-slab, Bz * X even; out
+// (narray, 2, n, Bz, X) float32 with re = D and im = F of
 // the two real fields packed as S+- = D~ +- i F~; unnormalized, sign +1;
 // the imaginary parts of the DC and Nyquist rows are dropped.  ky is
 // n/2 + 1 (Nyquist row present) or n/2 (Nyquist-free producer); n is
-// given by the caller, never inferred from ky's parity.
+// given by the caller, never inferred from ky's parity.  With ky = n/2,
+// out may be g itself (in place): for one (z, x) column the input's four
+// components x n/2 rows occupy exactly the addresses of the output's two
+// components x n rows.
 //
 // What bounds it.  It reads 4 and writes 2 float32 per (ky, z, x) and per
 // (y, z, x) of each array and does ~5 log2(n) flops per output: bound by
-// device-memory traffic.
+// device-memory traffic (1.28 ms at 512^3 and 3.35 TB/s).
 //
 // Design.  D and F are both real, so one complex sequence carries both:
 //   Z(k) = S+(k)           for 0 < k < n/2,
 //   Z(n - k) = conj(S-(k)) for 0 < k < n/2,
 //   Z(0) = Re D~(0) + i Re F~(0), Z(n/2) likewise (zero if absent),
 // and its unnormalized inverse DFT is D + iF exactly (for any S+-, since
-// S+ e + conj(S- e) = 2 Re(D~ e) + i 2 Re(F~ e)).  One block per
-// (x tile, z, array) builds the tile's y-columns in shared memory (reads
-// coalesced along x), runs one length-n complex inverse FFT per column and
-// writes re and im planes, coalesced along x.  A real-input FFT of half
-// length would halve the flops; the bytes are the bound, so it waits.
+// S+ e + conj(S- e) = 2 Re(D~ e) + i 2 Re(F~ e)).  That is y_dft's column
+// pass (fft_pass.cuh: the same tiles of 32/16/8 columns, register-resident
+// Stockham passes, stores to the re and im planes) with its own loader,
+// C2rLoad, forming Z(k) from the rows of g: every read is one row of TX
+// consecutive x, the same 128-byte runs as y_dft.  A block loads all of
+// its columns before its first exchange barrier and no other block
+// touches them, so in place is safe.  A real-input FFT of half length
+// would halve the flops; the bytes are the bound, so it waits.
 
-#include "fft_smem.cuh"
+#include "fft_pass.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256) c2r_y_kernel(const float* __restrict__ g,
-                                                    const float2* __restrict__ tw,
-                                                    float* __restrict__ out, int n,
-                                                    int logn, int rows, int has_nyq,
-                                                    int tx, int logtx) {
-  extern __shared__ float2 cols[];  // (n, tx), y-frequency bit-reversed
-  const int x0 = blockIdx.x * tx, z = blockIdx.y, a = blockIdx.z;
-  const int h = n >> 1;
-  const size_t nn = (size_t)n * n;
-  const size_t comp = (size_t)rows * nn;  // one (pm, reim) component
-  const float* spr = g + (size_t)(4 * a) * comp + (size_t)z * n + x0;
-  const float* spi = spr + comp;
-  const float* smr = spr + 2 * comp;
-  const float* smi = spr + 3 * comp;
-  for (int t = threadIdx.x; t < n * tx; t += blockDim.x) {
-    const int k = t >> logtx, xx = t & (tx - 1);
-    float2 v;
-    if (k == 0 || k == h) {
-      if (k == h && !has_nyq) {
-        v = make_float2(0.0f, 0.0f);
-      } else {
-        const size_t o = (size_t)k * nn + xx;
-        // Re D~ = (sp_re + sm_re) / 2, Re F~ = (sp_im - sm_im) / 2
-        v = make_float2(0.5f * (spr[o] + smr[o]), 0.5f * (spi[o] - smi[o]));
+// The column loader of Z (fft_pass.cuh's PlainLoad interface): element
+// k = t + r T of a (z, x) column from the packed rows of g; inner =
+// Bz * X, the kernel's column count, strides g's rows too.  r < E/2 is
+// k < n/2 (S+), r >= E/2 is k >= n/2 (conj S-), both known at compile
+// time; thread t = 0's k = 0 and k = n/2 read a second pair of rows.
+// Every element's loads are issued before any arithmetic on a loaded
+// value: an operation on one inside the lane's branch on the ragged edge
+// waited for it there (2.15 ms instead of 1.72 at 512^3).  An absent
+// Nyquist row (rows = n/2) reads nothing and is zero.
+struct C2rLoad {
+  int rows;  // ky of g (narray, 2, 2, ky, Bz, X): n/2 + 1 or n/2
+  template <int N, int C>
+  __device__ __forceinline__ void load(const float* g, bool live, long long a, long long col,
+                                       size_t, long long inner, long long, int t,
+                                       float2* v) const {
+    constexpr int E = reg::elems(N), T = N / E, H = N / 2;
+    const long long comp = rows * inner;  // one (pm, re/im) component
+    const float* spr = g + (size_t)(4 * a) * comp + col;
+    const float* spi = spr + comp;
+    const float* smr = spr + 2 * comp;
+    const float* smi = spr + 3 * comp;
+    // the loads, straight into v: S+ (re, im) of row k for k < n/2, S-
+    // (re, im) of row n - k for k >= n/2 (none at an absent Nyquist row)
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      float2 re = make_float2(0.0f, 0.0f), im = re;
+      const size_t o = (size_t)(r < E / 2 ? t + r * T : N - t - r * T) * inner;
+      const float* pre = r < E / 2 ? spr : smr;
+      const float* pim = r < E / 2 ? spi : smi;
+      if (live && (r != E / 2 || t != 0 || rows > H)) {
+        re = load_c<C>(pre + o);
+        im = load_c<C>(pim + o);
       }
-    } else if (k < h) {
-      const size_t o = (size_t)k * nn + xx;
-      v = make_float2(spr[o], spi[o]);
-    } else {
-      const size_t o = (size_t)(n - k) * nn + xx;
-      v = make_float2(smr[o], -smi[o]);
+      v[r] = make_float2(re.x, im.x);
+      if constexpr (C == 2) v[E + r] = make_float2(re.y, im.y);
     }
-    cols[zt::bitrev((unsigned)k, logn) * tx + xx] = v;
+    // then the arithmetic: conj S- for k > n/2
+#pragma unroll
+    for (int r = E / 2; r < E; ++r) {
+      v[r].y = -v[r].y;
+      if constexpr (C == 2) v[E + r].y = -v[E + r].y;
+    }
+    // and thread 0's k = 0 and k = n/2, one after the other (both pairs of
+    // extra rows at once spill at n = 512):
+    // (Re D~, Re F~) = ((S+re + S-re) / 2, (S+im - S-im) / 2)
+    if (live && t == 0) {
+      const float2 mr = load_c<C>(smr), mi = load_c<C>(smi);  // S- row 0
+      v[0] = make_float2(0.5f * (v[0].x + mr.x), 0.5f * (v[0].y - mi.x));
+      if constexpr (C == 2)
+        v[E] = make_float2(0.5f * (v[E].x + mr.y), 0.5f * (v[E].y - mi.y));
+    }
+    if (live && t == 0 && rows > H) {  // v[E/2] holds conj S-(n/2)
+      const size_t o = (size_t)H * inner;
+      const float2 pr = load_c<C>(spr + o), pi = load_c<C>(spi + o);  // S+ row n/2
+      v[E / 2] = make_float2(0.5f * (pr.x + v[E / 2].x), 0.5f * (pi.x + v[E / 2].y));
+      if constexpr (C == 2)
+        v[E + E / 2] = make_float2(0.5f * (pr.y + v[E + E / 2].x),
+                                   0.5f * (pi.y + v[E + E / 2].y));
+    }
   }
-  __syncthreads();
-  zt::fft_smem<true>(cols, logn, logtx, 1, tx, tw);
-  // out[a, reim, y, z, x]
-  float* ore = out + (size_t)(2 * a) * nn * n + (size_t)z * n + x0;
-  float* oim = ore + nn * n;
-  for (int t = threadIdx.x; t < n * tx; t += blockDim.x) {
-    const int y = t >> logtx, xx = t & (tx - 1);
-    const float2 v = cols[y * tx + xx];
-    const size_t o = (size_t)y * nn + xx;
-    ore[o] = v.x;
-    oim[o] = v.y;
-  }
-}
+};
 
 }  // namespace
 
-extern "C" int zt_col_tile(int n);
-
-extern "C" int zt_b2_c2r_y(const void* g, const void* tw, void* out, int n,
+extern "C" int zt_b2_c2r_y(const void* g, const void* tw, void* out, int n, long long nn,
                            int narray, int has_nyq, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int tx = zt_col_tile(n);
-  const size_t smem = (size_t)n * tx * sizeof(float2);
-  if ((err = zt::allow_smem(c2r_y_kernel, smem)) != cudaSuccess) return (int)err;
-  const int rows = n / 2 + (has_nyq ? 1 : 0);
-  c2r_y_kernel<<<dim3(n / tx, n, narray), 256, smem, (cudaStream_t)stream>>>(
-      (const float*)g, (const float2*)tw, (float*)out, n, zt::ilog2(n), rows,
-      has_nyq, tx, zt::ilog2(tx));
-  return (int)cudaGetLastError();
+  // items: the arrays; columns (z, x) of stride Bz * X; re/im n Bz X apart
+  return (int)cols(n, C2rLoad{n / 2 + (has_nyq ? 1 : 0)}, (const float*)g, (float*)out,
+                   (const float2*)tw, nn, narray, 1, 0, 2 * n * nn, n * nn,
+                   (cudaStream_t)stream);
 }

@@ -1,6 +1,8 @@
-// Register-resident mixed-radix Stockham FFT for the axis DFTs
-// (csrc/fft_axis.cu), unnormalized, in the FFTW sign convention of the
-// JAX package; the sign is the twiddle table's.
+// Register-resident mixed-radix Stockham FFT for every transform of the
+// port (csrc/fft_pass.cuh lays it out along columns and rows),
+// unnormalized, in the FFTW sign convention of the JAX package; the sign
+// is the twiddle table's: w[j] = exp(sign 2 pi i j / N), j < N/2, computed
+// in double precision on the host and rounded once to float.
 //
 // A length-N sequence (N a power of two in [16, 2048]) is transformed in
 // P <= 3 radix passes of radix 16, 8 or 4 (plan below):
@@ -223,4 +225,13 @@ __device__ __forceinline__ void exchange(float2* v, int t, float* sre, float* si
 }
 
 }  // namespace reg
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 }  // namespace zt

@@ -1,44 +1,55 @@
 // B1: half-spectrum mode synthesis + packing + ky=0 fixup + inverse DFTs
-// along z and x, for one H100 (sm_90a); and B3 (zt_b3_pack, below), the
+// along x and z, for one H100 (sm_90a); and B3 (zt_b3_pack, below), the
 // same synthesis and packing alone.
 //
 // Replaces the Pallas TPU kernel
 //   zeldovich_tpu/ops/pallas_synth.py::halfspace_pack_zx_pallas
 // (bodies _pack_zx_kernel / _pack_zx_pair_kernel / _pack_zx_pipe_kernel;
 // helpers _row_draws, _draw_chain, _row_pack, _row_fix, _row_dots).
-// Contract: out (narray, 2, 2, half, Z, X) float32 =
-// (array, +/- packing, re/im, ky, z, x), the always-zero y-Nyquist row
-// omitted (the pair form), unnormalized sign +1 transforms.
+// Contract: out (narray, 2, 2, nky, Z, X) float32 =
+// (array, +/- packing, re/im, ky, z, x) for the generated planes
+// ky in [ky0, ky0 + nky) (the main path: all half of them), the
+// always-zero y-Nyquist row omitted (the pair form), unnormalized sign +1
+// transforms.
 //
-// What bounds it.  Per mode the work is one 128-bit multiply-add, one LCG
-// step, two XSL-RR permutations, a log, a short polynomial sincos and a
-// dozen multiplies: a few hundred integer and float operations, small
-// against the bytes.  The output is 16 (plain) or 32 (PLT) float32 per
-// mode of the half grid, 4.3 GB at 512^3 PLT, so the kernel is bound by
-// device-memory traffic.
+// What bounds it.  Per mode the synthesis is one 128-bit multiply-add,
+// one LCG step, two XSL-RR permutations, a log, a short polynomial sincos
+// and a dozen multiplies; each of the 2 * narray packed sequences then
+// takes ~5 log2(n) flops a element in each of the two transforms.  The
+// output is 16 (plain) or 32 (PLT) float32 per mode of the half grid,
+// 2.15 GB at 512^3 plain, written once: bound by device-memory traffic
+// (0.64 ms at 3.35 TB/s), with the synthesis and the x pass's butterflies
+// of the same order of issue slots.  The design moves the output three
+// times (launch (a) writes it, (b) reads and writes it).
 //
-// Design.  Two launches:
-//  (a) pack_x: one block per (ky, z) row.  Each thread synthesizes modes
-//      of the row straight from the counter-based stream (native
-//      unsigned __int128, no limb arithmetic), packs S+ = D + iF and
-//      S- = D - iF for every array into shared memory in bit-reversed
-//      order, then the block runs the length-X inverse FFTs in shared
-//      memory and writes the rows once, coalesced along x.
+// Design: two launches of fft_pass.cuh's layouts.
+//  (a) pack_rows_kernel, synthesis + packing + the x pass: a (ky, z) row
+//      is one sequence of the rows layout, T = n / E threads.  Thread t
+//      synthesizes the E modes it loads in pass 0's pattern, x = t + r T
+//      (reads of pk, mzx, czx and the PLT planes coalesced along x), and
+//      keeps their deviates D (and, without PLT, each mode's fund / k^2)
+//      in its own shared-memory slots (12 B a mode, 24-48 KB a block).
+//      Then the row's 2 * narray packed sequences, one after another: form
+//      the sequence's values from D, transform them in registers with the
+//      1-2 padded exchanges, store them in natural order, coalesced along
+//      x.  Registers hold one sequence, indexed by compile-time constants
+//      only (no stack frame, no spills: chip_smoke.py checks ptxas; D and
+//      the scales in registers as well spilled at E = 16).  256 threads a
+//      block, three blocks a SM at E = 8 (b1_min_blocks).
 //      The ky=0 self-conjugate fixup is index-pure: a thread at ky=0 in
-//      the in-plane mirror half recomputes its source mode
-//      (0, (n-z)%n, (n-x)%n) itself and stores the conjugates of the
-//      source's opposite packing; the origin is stored as zero.  No pass
-//      over the ky=0 plane and no cross-block dependence.
-//  (b) fft_z: in place, one block per (x tile, ky, packed plane).  A tile
-//      of x columns is staged in shared memory (reads coalesced along x),
-//      transformed along z and written back.
-// So the output is written once by (a) and read and written once by (b):
-// three passes over the output's bytes.  Fusing (b) into (a) needs a
-// whole (Z, X) plane per block, which does not fit shared memory at 512^2;
-// that and wgmma/TMA staging are later work.
+//      the in-plane mirror half synthesizes its source mode
+//      (0, (n-z)%n, (n-x)%n) itself and forms the conjugate of the
+//      source's opposite packing (JAX's fixm rule, _row_fix); the origin
+//      is zero.  No pass over the ky=0 plane, no cross-block dependence.
+//  (b) the z pass: the column kernel of csrc/fft_axis.cu (zt_cols_dft),
+//      in place on out, exactly zx's z pass with K = nky planes.
 
-#include "fft_smem.cuh"
+#include "fft_pass.cuh"
 #include "pcg.cuh"
+
+extern "C" int zt_cols_dft(int n, const void* in, void* out, const void* tw, long long inner,
+                           long long nitems, int K, long long kstride, long long bstride,
+                           long long comp, void* stream);
 
 namespace {
 
@@ -51,137 +62,286 @@ struct Params {
   const u64* planes;   // (half, 2) [lo, hi] per-y-plane start states
   const u64* mzx;      // (2, Z, X) precomposed pre-bumped multipliers
   const u64* czx;      // (2, Z, X) increments
-  const float* pk;     // (half, Z, X) pk_effective
-  const float* coefs;  // (4, half, Z, X) PLT cx, cy, cz, f (QPLT only)
-  const float2* tw;    // (n/2) twiddles exp(+2 pi i j / n)
-  float* out;          // (narray, 2, 2, half, Z, X)
-  int n, logn, narray, flags;
+  const float* pk;     // (nky, Z, X) pk_effective of planes [ky0, ky0 + nky)
+  const float* coefs;  // (4, nky, Z, X) PLT cx, cy, cz, f (QPLT only)
+  const float2* tw;    // (n/2) twiddles exp(+2 pi i j / n) (B1)
+  float* out;
+  int n, narray, flags, ky0, nky;
   float fund, fund2;   // fundamental and fl(fund * fund) in float32
 };
 
-// Both packings (S+, S-) of every array for mode (ky, z, x) of the
-// generated half-space: P[2a] = S+ of array a, P[2a+1] = S-.
-__device__ void mode_packings(const Params& p, int ky, int z, int x, float2* P) {
-  const int n = p.n, half = n >> 1;
-  const size_t nn = (size_t)n * n;
-  const size_t zx = (size_t)z * n + x;
-  const size_t idx = (size_t)ky * nn + zx;
+// c * (i D): re = -c * D_im, im = c * D_re
+__device__ __forceinline__ float2 times_i(float c, float2 D) {
+  return make_float2(__fmul_rn(-c, D.y), __fmul_rn(c, D.x));
+}
+
+__device__ __forceinline__ float2 scaled(float2 a, float f) {
+  return make_float2(__fmul_rn(a.x, f), __fmul_rn(a.y, f));
+}
+
+// Array A of a mode with deviate D as P + iQ of two real fields: (D, F),
+// (G, H), (0, fF), (fG, fH) with (F, G, H) = (cx, cy, cz) * (i D).
+// coef(j) gives cx, cy, cz, f (j = 0..3) and is asked only for what array
+// A uses; density only, coef(0) = 0 and the array is D.  The JAX
+// package's expressions and rounding (_row_pack, _finish_fields).
+template <int A, class Coef>
+__device__ __forceinline__ void array_fields(float2 D, const Coef& coef, float2& P,
+                                             float2& Q) {
+  if constexpr (A == 0) {
+    P = D;
+    Q = times_i(coef(0), D);
+  } else if constexpr (A == 1) {
+    P = times_i(coef(1), D);
+    Q = times_i(coef(2), D);
+  } else if constexpr (A == 2) {
+    P = make_float2(0.0f, 0.0f);
+    Q = scaled(times_i(coef(0), D), coef(3));
+  } else {
+    const float f = coef(3);
+    P = scaled(times_i(coef(1), D), f);
+    Q = scaled(times_i(coef(2), D), f);
+  }
+}
+
+// S+ = P + iQ, or S- = P - iQ (minus)
+__device__ __forceinline__ float2 packed(float2 P, float2 Q, bool minus) {
+  return minus ? make_float2(P.x + Q.y, P.y - Q.x) : make_float2(P.x - Q.y, P.y + Q.x);
+}
+
+// The deviate D of mode (ky, z, x) (ky absolute).
+__device__ __forceinline__ float2 mode_deviate(const Params& p, int ky, int z, int x) {
+  const size_t nn = (size_t)p.n * p.n;
+  const size_t zx = (size_t)z * p.n + x;
   const u128 m = zt::load_u128(p.mzx + zx, p.mzx + nn + zx);
   const u128 c = zt::load_u128(p.czx + zx, p.czx + nn + zx);
   const u128 st = zt::load_u128(p.planes + 2 * ky, p.planes + 2 * ky + 1);
   // the tables are pre-bumped: m * st + c is the state at the first draw
-  const float2 D = zt::gaussian_mode(m * st + c, __ldg(p.pk + idx),
-                                     p.flags & FIXED_POWER, 1.0f);
-  const float Dr = D.x, Di = D.y;
+  return zt::gaussian_mode(m * st + c, __ldg(p.pk + (size_t)(ky - p.ky0) * nn + zx),
+                           p.flags & FIXED_POWER, 1.0f);
+}
 
-  if (p.flags & JUST_DENSITY) {
-    P[0] = make_float2(Dr - 0.0f, Di + 0.0f);
-    P[1] = make_float2(Dr + 0.0f, Di - 0.0f);
-    return;
-  }
-  float cx, cy, cz, f = 1.0f;
-  if (p.flags & QPLT) {
-    const size_t plane = (size_t)half * nn;
-    cx = __ldg(p.coefs + idx);
-    cy = __ldg(p.coefs + plane + idx);
-    cz = __ldg(p.coefs + 2 * plane + idx);
-    f = __ldg(p.coefs + 3 * plane + idx);
+// The signed wavenumber of index i
+__device__ __forceinline__ int wavenumber(int i, int n) { return i > n / 2 ? i - n : i; }
+
+// fund / k^2 of mode (ky, z, x) (0 at the origin): the JAX package's
+// expressions, k2 = n2 * fund^2, scale = fund / k2
+__device__ __forceinline__ float field_scale(const Params& p, int ky, int z, int x) {
+  const int kz = wavenumber(z, p.n), kx = wavenumber(x, p.n);
+  const int n2 = kx * kx + ky * ky + kz * kz;
+  const float k2 = __fmul_rn((float)n2, p.fund2);
+  const float ik2 = n2 == 0 ? 0.0f : __fdiv_rn(1.0f, k2);
+  return __fmul_rn(p.fund, ik2);
+}
+
+// The packing configuration, fixed for a run: MODE = QPLT, JUST_DENSITY
+// or 0 (the Zel'dovich fields of the wavevector)
+__device__ __forceinline__ int packing_mode(const Params& p) {
+  return p.flags & QPLT ? QPLT : p.flags & JUST_DENSITY ? JUST_DENSITY : 0;
+}
+
+// coefficient j (cx, cy, cz, f) of mode (ky, z, x): a PLT plane, or
+// k_j * scale (scale = field_scale) and f = 1; 0 for density only
+template <int MODE>
+__device__ __forceinline__ float field_coef(const Params& p, int j, int ky, int z, int x,
+                                            float scale) {
+  if constexpr (MODE == JUST_DENSITY) {
+    return 0.0f;
+  } else if constexpr (MODE == QPLT) {
+    const size_t nn = (size_t)p.n * p.n;
+    return __ldg(p.coefs + ((size_t)j * p.nky + (ky - p.ky0)) * nn + (size_t)z * p.n + x);
   } else {
-    // the JAX package's expressions: k2 = n2 * fund^2, scale = fund / k2
-    const int kz = z > half ? z - n : z;
-    const int kx = x > half ? x - n : x;
-    const int n2 = kx * kx + ky * ky + kz * kz;
-    const float k2 = __fmul_rn((float)n2, p.fund2);
-    const float ik2 = n2 == 0 ? 0.0f : __fdiv_rn(1.0f, k2);
-    const float scale = __fmul_rn(p.fund, ik2);
-    cx = __fmul_rn((float)kx, scale);
-    cy = __fmul_rn((float)ky, scale);
-    cz = __fmul_rn((float)kz, scale);
-  }
-  // F_j = c_j * (i D): re = -c_j * D_im, im = c_j * D_re
-  const float2 F = make_float2(__fmul_rn(-cx, Di), __fmul_rn(cx, Dr));
-  const float2 G = make_float2(__fmul_rn(-cy, Di), __fmul_rn(cy, Dr));
-  const float2 H = make_float2(__fmul_rn(-cz, Di), __fmul_rn(cz, Dr));
-  P[0] = make_float2(Dr - F.y, Di + F.x);   // A = D + iF
-  P[1] = make_float2(Dr + F.y, Di - F.x);
-  P[2] = make_float2(G.x - H.y, G.y + H.x); // B = G + iH
-  P[3] = make_float2(G.x + H.y, G.y - H.x);
-  if (p.flags & QPLT) {
-    const float2 Ff = make_float2(__fmul_rn(F.x, f), __fmul_rn(F.y, f));
-    const float2 Gf = make_float2(__fmul_rn(G.x, f), __fmul_rn(G.y, f));
-    const float2 Hf = make_float2(__fmul_rn(H.x, f), __fmul_rn(H.y, f));
-    P[4] = make_float2(0.0f - Ff.y, 0.0f + Ff.x);  // A2 = 0 + i f F
-    P[5] = make_float2(0.0f + Ff.y, 0.0f - Ff.x);
-    P[6] = make_float2(Gf.x - Hf.y, Gf.y + Hf.x);  // B2 = f G + i f H
-    P[7] = make_float2(Gf.x + Hf.y, Gf.y - Hf.x);
+    if (j == 3) return 1.0f;
+    const int k = j == 0 ? wavenumber(x, p.n) : j == 1 ? ky : wavenumber(z, p.n);
+    return __fmul_rn((float)k, scale);
   }
 }
 
-// (a) one block per (z, ky) row: synthesize, pack, fix, inverse FFT along x.
-__global__ void __launch_bounds__(256) pack_x_kernel(Params p) {
-  extern __shared__ float2 rows[];  // (2 * narray, n), bit-reversed
-  const int z = blockIdx.x, ky = blockIdx.y;
-  const int n = p.n, half = n >> 1, mask = n - 1;
-  const int nrow = 2 * p.narray;
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    float2 P[8];
-    const bool mirror = ky == 0 && (z > half || (z == 0 && x > half));
-    const bool origin = ky == 0 && z == 0 && x == 0;
-    if (origin) {
-      for (int r = 0; r < nrow; ++r) P[r] = make_float2(0.0f, 0.0f);
-    } else if (mirror) {
-      // ky=0 fixup: S+ = conj(S-) and S- = conj(S+) of the source mode
-      float2 S[8];
-      mode_packings(p, 0, (n - z) & mask, (n - x) & mask, S);
-      for (int r = 0; r < nrow; r += 2) {
-        P[r] = make_float2(S[r + 1].x, -S[r + 1].y);
-        P[r + 1] = make_float2(S[r].x, -S[r].y);
-      }
-    } else {
-      mode_packings(p, ky, z, x, P);
+template <int A, class Coef>
+__device__ __forceinline__ void both_packings(float2 D, const Coef& coef, float2* P) {
+  float2 U, V;
+  array_fields<A>(D, coef, U, V);
+  P[2 * A] = packed(U, V, false);
+  P[2 * A + 1] = packed(U, V, true);
+}
+
+template <int MODE>
+__device__ __forceinline__ void mode_packings_of(const Params& p, int ky, int z, int x,
+                                                 float2* P) {
+  const float2 D = mode_deviate(p, ky, z, x);
+  const float scale = MODE == 0 ? field_scale(p, ky, z, x) : 0.0f;
+  const auto coef = [&](int j) { return field_coef<MODE>(p, j, ky, z, x, scale); };
+  both_packings<0>(D, coef, P);
+  if constexpr (MODE != JUST_DENSITY) both_packings<1>(D, coef, P);
+  if constexpr (MODE == QPLT) {
+    both_packings<2>(D, coef, P);
+    both_packings<3>(D, coef, P);
+  }
+}
+
+// Both packings (S+, S-) of every array for mode (ky, z, x) of the
+// generated half-space: P[2a] = S+ of array a, P[2a+1] = S-.
+__device__ void mode_packings(const Params& p, int ky, int z, int x, float2* P) {
+  switch (packing_mode(p)) {
+    case QPLT: mode_packings_of<QPLT>(p, ky, z, x, P); break;
+    case JUST_DENSITY: mode_packings_of<JUST_DENSITY>(p, ky, z, x, P); break;
+    default: mode_packings_of<0>(p, ky, z, x, P);
+  }
+}
+
+// Sequence 2 A + pm of a pack_rows thread's E elements into v: element r
+// is x = t + r T of row (ky, z); on the ky = 0 mirror half (bit r of
+// mirror) it is the conjugate of the source mode's opposite packing, the
+// source (ky, zs, (n - x) % n).  D[r * NT] and scale[r * NT] hold the
+// modes' deviates and field scales (of the source on the mirror half).
+// No branch inside: every element's loads can issue before the first use.
+template <int A, int N, int NT, int MODE>
+__device__ __forceinline__ void sequence(const Params& p, int pm, int t, int ky, int zs,
+                                         unsigned mirror, const float2* D, const float* scale,
+                                         float2* v) {
+  constexpr int E = reg::elems(N), T = N / E;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const bool m = (mirror >> r) & 1;
+    const int xs = m ? (N - (t + r * T)) & (N - 1) : t + r * T;
+    const float sc = scale[r * NT];
+    const auto coef = [&](int j) { return field_coef<MODE>(p, j, ky, zs, xs, sc); };
+    float2 P, Q;
+    array_fields<A>(D[r * NT], coef, P, Q);
+    const float2 w = packed(P, Q, pm ^ m);
+    v[r] = make_float2(w.x, m ? -w.y : w.y);
+  }
+}
+
+// sequence<A> in the run's packing mode (density only has array 0 alone,
+// arrays 2 and 3 exist under PLT alone: only those are instantiated)
+template <int A, int N, int NT>
+__device__ __forceinline__ void sequence_in(int mode, const Params& p, int pm, int t, int ky,
+                                            int zs, unsigned mirror, const float2* D,
+                                            const float* scale, float2* v) {
+  if (mode == QPLT) {
+    sequence<A, N, NT, QPLT>(p, pm, t, ky, zs, mirror, D, scale, v);
+  } else if constexpr (A < 2) {
+    if (A == 0 && mode == JUST_DENSITY)
+      sequence<0, N, NT, JUST_DENSITY>(p, pm, t, ky, zs, mirror, D, scale, v);
+    else
+      sequence<A, N, NT, 0>(p, pm, t, ky, zs, mirror, D, scale, v);
+  }
+}
+
+// threads of a pack_rows block and the blocks a SM its registers allow
+// (measured at 512^3: three blocks of 80 registers take 1.69 ms, two of
+// 128 2.03 ms, four of 64 spill): 256 threads of at most 80 registers at
+// E = 8, of 128 at E = 16; at n = 2048 (radix-16 passes and the PLT
+// sequences spill at 128) 128 threads of at most 168
+__host__ __device__ constexpr int b1_threads(int n) { return n == 2048 ? 128 : 256; }
+__host__ __device__ constexpr int b1_min_blocks(int n) {
+  return n == 2048 ? 3 : reg::elems(n) == 8 ? 3 : 2;
+}
+
+// rows of a pack_rows block, within one z-plane
+__host__ __device__ constexpr int b1_rows(int n) {
+  return b1_threads(n) / threads_per_seq(n) < n ? b1_threads(n) / threads_per_seq(n) : n;
+}
+
+// shared memory of a pack_rows block: the exchange planes, then each
+// thread's deviates and field scales
+template <int N>
+__host__ __device__ constexpr size_t pack_rows_smem() {
+  return (2 * (size_t)extent<false>(N) * b1_rows(N) + 3 * (size_t)b1_rows(N) * N) * sizeof(float);
+}
+
+// (a) ROWS (ky, z) rows a block: synthesize, pack, fix, inverse FFT along x.
+template <int N>
+__global__ void __launch_bounds__(b1_rows(N) * threads_per_seq(N), b1_min_blocks(N))
+    pack_rows_kernel(Params p) {
+  constexpr int E = reg::elems(N), T = threads_per_seq(N), ROWS = b1_rows(N);
+  constexpr int NT = ROWS * T;  // threads
+  constexpr int RL = reg::radix(N, reg::npass(N) - 1);
+  constexpr int ROW = extent<false>(N), HALF = N / 2;
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + ROW * ROWS;
+  // the thread's own slots, element r at [r * NT]: only it reads them
+  float2* D = reinterpret_cast<float2*>(smem + 2 * ROW * ROWS) + threadIdx.x;
+  float* scale = smem + 2 * ROW * ROWS + 2 * E * NT + threadIdx.x;
+  const int t = threadIdx.x % T, q = threadIdx.x / T;
+  const int g = blockIdx.x * ROWS + q;  // row of the output's (nky, Z)
+  const int ky = p.ky0 + g / N, z = g % N;
+  const bool plane0 = ky == 0;
+  // the source plane row of the mirror half's modes: (n - z) % n
+  const int zs = plane0 && z > HALF ? N - z : z;
+  const int mode = packing_mode(p);
+  unsigned mirror = 0;  // bit r: element r is on the ky = 0 mirror half
+  // four modes' draws in flight at a time (all E at once hold E sets of
+  // 128-bit table entries and spill)
+#pragma unroll 4
+  for (int r = 0; r < E; ++r) {
+    const int x = t + r * T;
+    const bool m = plane0 && (z > HALF || (z == 0 && x > HALF));
+    const int xs = m ? (N - x) & (N - 1) : x;
+    mirror |= (unsigned)m << r;
+    D[r * NT] = mode_deviate(p, ky, zs, xs);
+    scale[r * NT] = mode == 0 ? field_scale(p, ky, zs, xs) : 0.0f;
+  }
+  const float s = __ldg(&p.tw[N / 4]).y;  // the table's sign
+  const size_t nn = (size_t)N * N, comp = (size_t)p.nky * nn;
+  const bool origin = plane0 && z == 0 && t == 0;  // element 0
+#pragma unroll 1
+  for (int seq = 0; seq < 2 * p.narray; ++seq) {
+    if (seq > 0) __syncthreads();  // the last sequence's exchange reads are done
+    // t and mirror as the loop sees them: keeps each element's indices,
+    // coefficients and PLT loads inside the loop (hoisted out of it, E of
+    // each would not fit the registers)
+    int tl = t;
+    unsigned ml = mirror;
+    asm volatile("" : "+r"(tl), "+r"(ml));
+    float2 v[E];
+    const int pm = seq & 1;
+    switch (seq >> 1) {
+      case 0: sequence_in<0, N, NT>(mode, p, pm, tl, ky, zs, ml, D, scale, v); break;
+      case 1: sequence_in<1, N, NT>(mode, p, pm, tl, ky, zs, ml, D, scale, v); break;
+      case 2: sequence_in<2, N, NT>(mode, p, pm, tl, ky, zs, ml, D, scale, v); break;
+      default: sequence_in<3, N, NT>(mode, p, pm, tl, ky, zs, ml, D, scale, v);
     }
-    const unsigned xr = zt::bitrev((unsigned)x, p.logn);
-    for (int r = 0; r < nrow; ++r) rows[r * n + xr] = P[r];
-  }
-  __syncthreads();
-  zt::fft_smem<false>(rows, p.logn, zt::ilog2(nrow), n, 1, p.tw);
-  // out[a, pm, reim, ky, z, x]: row r = 2a + pm, re plane then im plane
-  const size_t nn = (size_t)n * n;
-  const size_t reim_stride = (size_t)half * nn;
-  for (int t = threadIdx.x; t < nrow * n; t += blockDim.x) {
-    const int r = t / n, x = t - r * n;
-    const float2 v = rows[r * n + x];
-    float* base = p.out + (size_t)(2 * r) * reim_stride + (size_t)ky * nn
-                  + (size_t)z * n + x;
-    base[0] = v.x;
-    base[reim_stride] = v.y;
+    if (origin) v[0] = make_float2(0.0f, 0.0f);
+    transform<N, false, ROWS>(v, t, q * ROW, sre, sim, p.tw, s);
+    // out[a, pm, reim, ky, z, x]: sequence 2a + pm, re plane then im plane
+    float* row = p.out + 2 * seq * comp + (size_t)g * N + t;
+#pragma unroll
+    for (int b2 = 0; b2 < E / RL; ++b2) {
+#pragma unroll
+      for (int r = 0; r < RL; ++r) {
+        const int o = b2 * T + r * (N / RL);
+        const float2 x = v[b2 * RL + r];
+        row[o] = x.x;
+        row[o + comp] = x.y;
+      }
+    }
   }
 }
 
-// (b) in-place inverse FFT along z of every packed (array, pm, ky) plane;
-// one block per (x tile, ky, plane), tile of tx columns in shared memory.
-__global__ void __launch_bounds__(256) fft_z_kernel(float* out, const float2* tw,
-                                                    int n, int logn, int half,
-                                                    int tx, int logtx) {
-  extern __shared__ float2 cols[];  // (n, tx), z bit-reversed
-  const int x0 = blockIdx.x * tx, ky = blockIdx.y, r = blockIdx.z;
-  const size_t nn = (size_t)n * n;
-  const size_t reim_stride = (size_t)half * nn;
-  float* re = out + (size_t)(2 * r) * reim_stride + (size_t)ky * nn + x0;
-  float* im = re + reim_stride;
-  for (int t = threadIdx.x; t < n * tx; t += blockDim.x) {
-    const int z = t >> logtx, xx = t & (tx - 1);
-    const size_t o = (size_t)z * n + xx;
-    cols[zt::bitrev((unsigned)z, logn) * tx + xx] = make_float2(re[o], im[o]);
-  }
-  __syncthreads();
-  zt::fft_smem<true>(cols, logn, logtx, 1, tx, tw);
-  for (int t = threadIdx.x; t < n * tx; t += blockDim.x) {
-    const int z = t >> logtx, xx = t & (tx - 1);
-    const size_t o = (size_t)z * n + xx;
-    const float2 v = cols[z * tx + xx];
-    re[o] = v.x;
-    im[o] = v.y;
+template <int N>
+cudaError_t launch_pack_rows(const Params& p, cudaStream_t s) {
+  constexpr int ROWS = b1_rows(N);
+  constexpr size_t smem = pack_rows_smem<N>();
+  cudaError_t err = zt::allow_smem(pack_rows_kernel<N>, smem);
+  if (err != cudaSuccess) return err;
+  pack_rows_kernel<N><<<(unsigned)((long long)p.nky * N / ROWS), ROWS * threads_per_seq(N),
+                        smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t pack_rows(const Params& p, cudaStream_t s) {
+  switch (p.n) {
+    case 16: return launch_pack_rows<16>(p, s);
+    case 32: return launch_pack_rows<32>(p, s);
+    case 64: return launch_pack_rows<64>(p, s);
+    case 128: return launch_pack_rows<128>(p, s);
+    case 256: return launch_pack_rows<256>(p, s);
+    case 512: return launch_pack_rows<512>(p, s);
+    case 1024: return launch_pack_rows<1024>(p, s);
+    case 2048: return launch_pack_rows<2048>(p, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -224,46 +384,11 @@ __global__ void __launch_bounds__(256) pack_kernel(Params p) {
 
 }  // namespace
 
-extern "C" int zt_b3_pack(const void* planes, const void* mzx, const void* czx,
-                          const void* pk, const void* coefs, void* out, int n,
-                          int narray, int flags, float fund, float fund2,
-                          int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  Params p;
-  p.planes = (const u64*)planes;
-  p.mzx = (const u64*)mzx;
-  p.czx = (const u64*)czx;
-  p.pk = (const float*)pk;
-  p.coefs = (const float*)coefs;
-  p.tw = nullptr;
-  p.out = (float*)out;
-  p.n = n;
-  p.logn = zt::ilog2(n);
-  p.narray = narray;
-  p.flags = flags;
-  p.fund = fund;
-  p.fund2 = fund2;
-  const int threads = n < 256 ? n : 256;
-  pack_kernel<<<dim3((n + threads - 1) / threads, n, n / 2 + 1), threads, 0,
-                (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
-}
+namespace {
 
-// Column tile width of the strided passes: ~64 KB of shared memory.
-extern "C" int zt_col_tile(int n) {
-  int tx = 8192 / n;
-  if (tx < 1) tx = 1;
-  if (tx > n) tx = n;
-  return tx;
-}
-
-extern "C" int zt_b1_pack_zx(const void* planes, const void* mzx, const void* czx,
-                             const void* pk, const void* coefs, const void* tw,
-                             void* out, int n, int narray, int flags, float fund,
-                             float fund2, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+Params make_params(const void* planes, const void* mzx, const void* czx, const void* pk,
+                   const void* coefs, const void* tw, void* out, int n, int narray, int flags,
+                   float fund, float fund2, int ky0, int nky) {
   Params p;
   p.planes = (const u64*)planes;
   p.mzx = (const u64*)mzx;
@@ -273,25 +398,45 @@ extern "C" int zt_b1_pack_zx(const void* planes, const void* mzx, const void* cz
   p.tw = (const float2*)tw;
   p.out = (float*)out;
   p.n = n;
-  p.logn = zt::ilog2(n);
   p.narray = narray;
   p.flags = flags;
+  p.ky0 = ky0;
+  p.nky = nky;
   p.fund = fund;
   p.fund2 = fund2;
-  const int half = n / 2;
-  cudaStream_t s = (cudaStream_t)stream;
+  return p;
+}
 
-  const size_t smem_a = (size_t)2 * narray * n * sizeof(float2);
-  if ((err = zt::allow_smem(pack_x_kernel, smem_a)) != cudaSuccess) return (int)err;
-  pack_x_kernel<<<dim3(n, half), 256, smem_a, s>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+}  // namespace
 
-  const int tx = zt_col_tile(n);
-  const size_t smem_b = (size_t)n * tx * sizeof(float2);
-  if ((err = zt::allow_smem(fft_z_kernel, smem_b)) != cudaSuccess) return (int)err;
-  fft_z_kernel<<<dim3(n / tx, half, 2 * narray), 256, smem_b, s>>>(
-      p.out, p.tw, n, p.logn, half, tx, zt::ilog2(tx));
+extern "C" int zt_b3_pack(const void* planes, const void* mzx, const void* czx,
+                          const void* pk, const void* coefs, void* out, int n,
+                          int narray, int flags, float fund, float fund2,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Params p = make_params(planes, mzx, czx, pk, coefs, nullptr, out, n, narray, flags,
+                               fund, fund2, 0, n / 2);
+  const int threads = n < 256 ? n : 256;
+  pack_kernel<<<dim3((n + threads - 1) / threads, n, n / 2 + 1), threads, 0,
+                (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// B1 over the generated planes [ky0, ky0 + nky): pk (nky, Z, X), coefs
+// (4, nky, Z, X) or null, out (narray, 2, 2, nky, Z, X).
+extern "C" int zt_b1_pack_zx(const void* planes, const void* mzx, const void* czx,
+                             const void* pk, const void* coefs, const void* tw,
+                             void* out, int n, int narray, int flags, float fund,
+                             float fund2, int ky0, int nky, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Params p = make_params(planes, mzx, czx, pk, coefs, tw, out, n, narray, flags, fund,
+                               fund2, ky0, nky);
+  if ((err = pack_rows(p, (cudaStream_t)stream)) != cudaSuccess) return (int)err;
+  // z: items (array, pm) x nky planes, columns x of stride X, re/im nky * n^2 apart
+  const long long nn = (long long)n * n, comp = (long long)nky * nn;
+  return zt_cols_dft(n, out, out, tw, n, 2LL * narray * nky, nky, nn, 2 * comp, comp, stream);
 }
 
 extern "C" const char* zt_error_string(int code) {

@@ -132,9 +132,9 @@ def library() -> ctypes.CDLL:
         build()
         lib = ctypes.CDLL(str(LIB))
         lib.zt_b1_pack_zx.restype = _I
-        lib.zt_b1_pack_zx.argtypes = [_VP] * 7 + [_I] * 3 + [_F, _F, _I, _VP]
+        lib.zt_b1_pack_zx.argtypes = [_VP] * 7 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_VP]
         lib.zt_b2_c2r_y.restype = _I
-        lib.zt_b2_c2r_y.argtypes = [_VP] * 3 + [_I] * 4 + [_VP]
+        lib.zt_b2_c2r_y.argtypes = [_VP] * 3 + [_I, _LL] + [_I] * 3 + [_VP]
         lib.zt_b4_boxmuller.restype = _I
         lib.zt_b4_boxmuller.argtypes = [_VP] * 7 + [_I] * 4 + [_VP]
         lib.zt_b5_boxmuller_at.restype = _I
@@ -161,25 +161,28 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def launch_pack_zx(planes64, mzx64, czx64, pk, coefs, tw, out, n, narray,
-                   flags, fund, fund2):
-    """B1: synthesis + packing + ky=0 fixup + z/x inverse DFTs into out."""
+                   flags, fund, fund2, ky0):
+    """B1: synthesis + packing + ky=0 fixup + x/z inverse DFTs of the
+    generated planes [ky0, ky0 + len(pk)) into out."""
     lib = library()
     rc = lib.zt_b1_pack_zx(
         planes64.data_ptr(), mzx64.data_ptr(), czx64.data_ptr(),
         pk.data_ptr(), None if coefs is None else coefs.data_ptr(),
-        tw.data_ptr(), out.data_ptr(), n, narray, flags, fund, fund2,
-        out.device.index, _stream(out),
+        tw.data_ptr(), out.data_ptr(), n, narray, flags, fund, fund2, ky0,
+        pk.shape[0], out.device.index, _stream(out),
     )
     _check(lib, rc, "halfspace_pack_zx")
     launches["halfspace_pack_zx"] += 1
 
 
 def launch_c2r_y(g, tw, out, n, narray, has_nyq):
-    """B2: half-spectrum c2r inverse DFT along y into out."""
+    """B2: half-spectrum c2r inverse DFT along y into out (out may be g
+    when it has no Nyquist row)."""
     lib = library()
     rc = lib.zt_b2_c2r_y(
-        g.data_ptr(), tw.data_ptr(), out.data_ptr(), n, narray,
-        int(has_nyq), out.device.index, _stream(out),
+        g.data_ptr(), tw.data_ptr(), out.data_ptr(), n,
+        g.shape[-2] * g.shape[-1], narray, int(has_nyq), out.device.index,
+        _stream(out),
     )
     _check(lib, rc, "c2r_y")
     launches["c2r_y"] += 1

@@ -122,9 +122,10 @@ class Zeldovich:
     def xspace_half_pair(self, spm=None):
         """The forward step: (narray, 2, Y, Z, X) x-space real pairs.
 
-        Without ``spm``, the fused route (B1, B2); it falls back to the
-        full-grid path for the configurations the half spectrum cannot
-        represent, as the JAX package does.  With ``spm`` (from
+        Without ``spm``, the fused route (B1, then B2 in place on B1's
+        output); it falls back to the full-grid path for the
+        configurations the half spectrum cannot represent, as the JAX
+        package does.  With ``spm`` (from
         ``kspace_half_pair``), the separate-kernel route: zx, then B2.
         """
         if spm is not None:
@@ -132,7 +133,7 @@ class Zeldovich:
         if not self.half_exact:
             return self.xspace_pair()
         g = halfspace_pack_zx(self.cfg, self.tables, self.pk_eff, self.plt_coefs)
-        return c2r_y(g, self.cfg.ppd)
+        return c2r_y(g, self.cfg.ppd, out=g)  # in place: one grid
 
     # -- the full-grid pair path ---------------------------------------
     # ``plain=True`` runs the plain versions of B4 and the transforms on

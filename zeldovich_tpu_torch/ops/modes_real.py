@@ -15,8 +15,8 @@ Port of the main-path parts of ``zeldovich_tpu/ops/modes_real.py``:
 * ``synthesize_pair``: any rows of that full grid, each entry computed at
   its source mode (the out-of-core slab synthesis).
 
-``synthesize_half_pair``, ``pack_half_raw`` and ``gaussian`` are the
-plain versions the CUDA kernels of ops/synth.py (B1, B3) and
+``synthesize_half_pair``, ``pack_rows`` (any of the generated planes),
+``pack_half_raw`` and ``gaussian`` are the plain versions the CUDA kernels of ops/synth.py (B1, B3) and
 ops/boxmuller.py (B4, B5) are held against.  Work is chunked over y so
 the int64 limb temporaries of the draw chain, and the field temporaries
 of the full grid, stay bounded at 512^3 and above.
@@ -55,18 +55,28 @@ def _wavenumbers(y0: int, y1: int, ppd: int, device):
     return ky, kz, kx, n2
 
 
-def pk_effective(cfg: SynthConfig, tables: SynthTables, dtype):
+def _planes(cfg: SynthConfig, rows):
+    """The generated planes [y0, y1) that ``rows`` names (all by default)."""
+    y0, y1 = rows if rows is not None else (0, cfg.ppd // 2)
+    if not 0 <= y0 < y1 <= cfg.ppd // 2:
+        raise ValueError(f"planes {rows}: want 0 <= y0 < y1 <= {cfg.ppd // 2}")
+    return y0, y1
+
+
+def pk_effective(cfg: SynthConfig, tables: SynthTables, dtype, rows=None):
     """Static per-run amplitude field (half, Z, X): the zero-rule mask
-    folded into P(k).  Bit-equal to the JAX package's (a gather + cast)."""
-    ppd, half = cfg.ppd, cfg.ppd // 2
+    folded into P(k).  Bit-equal to the JAX package's (a gather + cast).
+    ``rows = (y0, y1)``: the planes [y0, y1) alone."""
+    ppd = cfg.ppd
+    y0, y1 = _planes(cfg, rows)
     dev = tables.device
-    out = torch.empty((half, ppd, ppd), dtype=dtype, device=dev)
-    cy = y_chunk(half, ppd, 1 << 23)
-    for y0 in range(0, half, cy):
-        ky, kz, kx, n2 = _wavenumbers(y0, y0 + cy, ppd, dev)
+    out = torch.empty((y1 - y0, ppd, ppd), dtype=dtype, device=dev)
+    cy = y_chunk(y1 - y0, ppd, 1 << 23)
+    for r0 in range(0, y1 - y0, cy):
+        ky, kz, kx, n2 = _wavenumbers(y0 + r0, y0 + r0 + cy, ppd, dev)
         zero = zero_rules(kx, ky, kz, n2, cfg)
         pk = tables.pk_n2[n2].to(dtype)
-        out[y0:y0 + cy] = torch.where(zero, 0.0, pk)
+        out[r0:r0 + cy] = torch.where(zero, 0.0, pk)
     return out
 
 
@@ -100,21 +110,23 @@ def plt_coefs_at(kx, ky, kz, n2, cfg: SynthConfig, tables: SynthTables, dtype):
     return evec[0] * scale, evec[1] * scale, evec[2] * scale, f
 
 
-def plt_coef_fields(cfg: SynthConfig, tables: SynthTables, dtype):
+def plt_coef_fields(cfg: SynthConfig, tables: SynthTables, dtype, rows=None):
     """Setup-time PLT coefficient planes, stacked (4, half, Z, X).
 
-    ``plt_coefs_at`` over the generated half space: one stacked tensor, so
-    the kernel takes one pointer.  Chunked over y: the 8-point gather
-    holds ~8 chunk-sized (.., 4) temporaries at once.
+    ``plt_coefs_at`` over the generated half space (``rows = (y0, y1)``:
+    the planes [y0, y1) alone): one stacked tensor, so the kernel takes
+    one pointer.  Chunked over y: the 8-point gather holds ~8 chunk-sized
+    (.., 4) temporaries at once.
     """
-    ppd, half = cfg.ppd, cfg.ppd // 2
+    ppd = cfg.ppd
+    y0, y1 = _planes(cfg, rows)
     dev = tables.device
-    out = torch.empty((4, half, ppd, ppd), dtype=dtype, device=dev)
-    cy = y_chunk(half, ppd, 32 * ppd * ppd)
-    for y0 in range(0, half, cy):
-        ky, kz, kx, n2 = _wavenumbers(y0, y0 + cy, ppd, dev)
+    out = torch.empty((4, y1 - y0, ppd, ppd), dtype=dtype, device=dev)
+    cy = y_chunk(y1 - y0, ppd, 32 * ppd * ppd)
+    for r0 in range(0, y1 - y0, cy):
+        ky, kz, kx, n2 = _wavenumbers(y0 + r0, y0 + r0 + cy, ppd, dev)
         for j, c in enumerate(plt_coefs_at(kx, ky, kz, n2, cfg, tables, dtype)):
-            out[j, y0:y0 + cy] = c
+            out[j, r0:r0 + cy] = c
     return out
 
 
@@ -235,30 +247,43 @@ def _pack_into(out, a, y0, y1, P, Q):
         out[a, s, 0, y0:y1], out[a, s, 1, y0:y1] = _packing(P, Q, sign)
 
 
+def pack_rows(cfg: SynthConfig, tables: SynthTables, dtype, pk_eff, plt_coefs=None,
+              ky0: int = 0, out=None):
+    """The packed planes [ky0, ky0 + rows) of the generated half spectrum,
+    (narray, 2, 2, rows, Z, X), the ky=0 plane RAW; pk_eff (rows, Z, X)
+    and plt_coefs (4, rows, Z, X) hold those planes.
+
+    Per mode: the first-draw state plane[y]*mzx + czx, two XSL-RR draws,
+    Box-Muller against pk_eff, the displacement fields i k_j/k^2 D (or the
+    PLT coefficient planes, and f times them for the velocity arrays),
+    both +/- packings.
+    """
+    ppd, rows = cfg.ppd, pk_eff.shape[0]
+    dev = pk_eff.device
+    if cfg.qPLT and plt_coefs is None:
+        plt_coefs = plt_coef_fields(cfg, tables, dtype, (ky0, ky0 + rows))
+    if out is None:
+        out = torch.empty((cfg.narray, 2, 2, rows, ppd, ppd), dtype=dtype, device=dev)
+    ny = y_chunk(rows, ppd, 1 << 22)
+    for r0 in range(0, rows, ny):
+        y0, y1 = ky0 + r0, ky0 + r0 + ny
+        D = draw_planes(tables, y0, y1, pk_eff[r0:r0 + ny], cfg.fixed_power)
+        coefs = (None if cfg.just_density else plt_coefs[:, r0:r0 + ny] if cfg.qPLT
+                 else _coefs_of_planes(cfg, y0, y1, dtype, dev))
+        for a, P, Q in packed_fields(D, coefs, cfg.qPLT, cfg.just_density):
+            _pack_into(out, a, r0, r0 + ny, P, Q)
+    return out
+
+
 def pack_half_raw(cfg: SynthConfig, tables: SynthTables, dtype, pk_eff,
                   plt_coefs=None):
     """The packed half spectrum (narray, 2, 2, half+1, Z, X) with the ky=0
-    plane RAW and the y-Nyquist row zero: the plain version of kernel B3.
-
-    Per mode of the generated half-space: the first-draw state
-    plane[y]*mzx + czx, two XSL-RR draws, Box-Muller against pk_eff, the
-    displacement fields i k_j/k^2 D (or the PLT coefficient planes, and f
-    times them for the velocity arrays), both +/- packings.
-    """
+    plane RAW and the y-Nyquist row zero (``pack_rows`` of every generated
+    plane): the plain version of kernel B3."""
     ppd, half = cfg.ppd, cfg.ppd // 2
-    dev = pk_eff.device
-    if cfg.qPLT and plt_coefs is None:
-        plt_coefs = plt_coef_fields(cfg, tables, dtype)
-    narray = cfg.narray
-    out = torch.zeros((narray, 2, 2, half + 1, ppd, ppd), dtype=dtype, device=dev)
-    ny = y_chunk(half, ppd, 1 << 22)
-    for y0 in range(0, half, ny):
-        y1 = y0 + ny
-        D = draw_planes(tables, y0, y1, pk_eff[y0:y1], cfg.fixed_power)
-        coefs = (None if cfg.just_density else _coefs_of_planes(
-            cfg, y0, y1, dtype, dev, plt_coefs if cfg.qPLT else None))
-        for a, P, Q in packed_fields(D, coefs, cfg.qPLT, cfg.just_density):
-            _pack_into(out, a, y0, y1, P, Q)
+    out = torch.zeros((cfg.narray, 2, 2, half + 1, ppd, ppd), dtype=dtype,
+                      device=pk_eff.device)
+    pack_rows(cfg, tables, dtype, pk_eff, plt_coefs, out=out[:, :, :, :half])
     return out
 
 

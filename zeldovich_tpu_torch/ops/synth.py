@@ -5,16 +5,17 @@ Ports of ``zeldovich_tpu/ops/pallas_synth.py``:
 
 * ``halfspace_pack_zx`` (B1, ``halfspace_pack_zx_pallas``) returns the
   z/x-transformed packed half-spectrum ``(narray, 2, 2, half, Z, X)``
-  with the ky=0 fixup and without the always-zero y-Nyquist row; the c2r
-  y-transform (ops/c2r.py) is told ``n`` explicitly;
+  with the ky=0 fixup and without the always-zero y-Nyquist row (or the
+  planes [ky0, ky0 + rows) of it); the c2r y-transform (ops/c2r.py) is
+  told ``n`` explicitly;
 * ``halfspace_pack`` (B3, ``halfspace_pack_pallas``) returns the
   untransformed ``(narray, 2, 2, half+1, Z, X)`` with the ky=0 plane raw
   and the Nyquist row zero: the separate-kernel half route's synthesis.
 
 On a CUDA tensor each launches its hand-written kernel (csrc/synth.cu)
 or raises; on a CPU tensor it runs the plain version: for B1
-``synthesize_half_pair`` followed by an unnormalized sign +1 complex FFT
-over (z, x), for B3 ``pack_half_raw``.
+``pack_rows`` and the ky=0 fixup followed by an unnormalized sign +1
+complex FFT over (z, x), for B3 ``pack_half_raw``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from .. import kernels
 from .modes import SynthConfig, SynthTables
-from .modes_real import pack_half_raw, synthesize_half_pair
+from .modes_real import fix_ky0_packed, pack_half_raw, pack_rows
 
 _FIXED_POWER, _JUST_DENSITY, _QPLT = 1, 2, 4
 
@@ -34,7 +35,7 @@ _FIXED_POWER, _JUST_DENSITY, _QPLT = 1, 2, 4
 @lru_cache(maxsize=16)
 def twiddles(n: int, device: torch.device, sign: int = +1) -> torch.Tensor:
     """(n/2, 2) float32 table of exp(sign 2 pi i j / n), from float64: the
-    shared-memory FFTs transform in the table's sign."""
+    kernels' FFTs transform in the table's sign."""
     if sign not in (1, -1):
         raise ValueError(f"sign must be +1 or -1, got {sign}")
     w = np.exp(sign * 2j * np.pi * np.arange(n // 2) / n)
@@ -64,18 +65,19 @@ def check_operands(want: dict, dev):
 
 
 def halfspace_pack_zx_plain(cfg: SynthConfig, tables: SynthTables, pk_eff,
-                            plt_coefs=None):
-    """Plain version: synthesize_half_pair, drop the Nyquist row, ifft2."""
-    half = cfg.ppd // 2
-    spm = synthesize_half_pair(cfg, tables, pk_eff.dtype, pk_eff, plt_coefs)
-    c = torch.complex(spm[:, :, 0, :half], spm[:, :, 1, :half])
+                            plt_coefs=None, ky0: int = 0):
+    """Plain version: pack_rows, the ky=0 fixup, ifft2."""
+    spm = pack_rows(cfg, tables, pk_eff.dtype, pk_eff, plt_coefs, ky0)
+    if ky0 == 0:
+        fix_ky0_packed(spm)
+    c = torch.complex(spm[:, :, 0], spm[:, :, 1])
     del spm
     c = torch.fft.ifft2(c, norm="forward")  # sign +1, no 1/N
     return torch.stack([c.real, c.imag], dim=2)
 
 
 def _kernel_operands(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs,
-                     what: str):
+                     what: str, ky0: int = 0):
     """Checks for the B1/B3 CUDA route; returns (coefs, flags, fund, fund2)."""
     dev = pk_eff.device
     if dev.type != "cuda":
@@ -86,15 +88,18 @@ def _kernel_operands(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs,
         raise TypeError(f"the CUDA kernel is float32, got {pk_eff.dtype}")
     if cfg.qPLT and plt_coefs is None:
         raise ValueError("PLT needs the coefficient planes (plt_coef_fields)")
+    rows = pk_eff.shape[0]
+    if not 0 <= ky0 < ky0 + rows <= half:
+        raise ValueError(f"{what}: planes [{ky0}, {ky0 + rows}) outside [0, {half})")
     coefs = plt_coefs if cfg.qPLT else None
     want = {
-        "pk_eff": (pk_eff, (half, n, n), torch.float32),
+        "pk_eff": (pk_eff, (rows, n, n), torch.float32),
         "planes64": (tables.planes64, (half, 2), torch.int64),
         "mzx64": (tables.mzx64, (2, n, n), torch.int64),
         "czx64": (tables.czx64, (2, n, n), torch.int64),
     }
     if coefs is not None:
-        want["plt_coefs"] = (coefs, (4, half, n, n), torch.float32)
+        want["plt_coefs"] = (coefs, (4, rows, n, n), torch.float32)
     check_operands(want, dev)
     flags = (
         (_FIXED_POWER if cfg.fixed_power else 0)
@@ -106,22 +111,24 @@ def _kernel_operands(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs,
 
 
 def halfspace_pack_zx(cfg: SynthConfig, tables: SynthTables, pk_eff,
-                      plt_coefs=None):
-    """Transformed packed half-spectrum (narray, 2, 2, half, Z, X).
+                      plt_coefs=None, ky0: int = 0):
+    """Transformed packed half-spectrum (narray, 2, 2, rows, Z, X).
 
-    pk_eff: (half, Z, X) pk_effective; plt_coefs: (4, half, Z, X) PLT
-    coefficient planes (modes_real.plt_coef_fields), required under PLT.
+    pk_eff: (rows, Z, X) pk_effective of the generated planes
+    [ky0, ky0 + rows), all half of them on the main path; plt_coefs:
+    (4, rows, Z, X) PLT coefficient planes of the same planes
+    (modes_real.plt_coef_fields), required under PLT.
     """
     if pk_eff.device.type == "cpu":
-        return halfspace_pack_zx_plain(cfg, tables, pk_eff, plt_coefs)
+        return halfspace_pack_zx_plain(cfg, tables, pk_eff, plt_coefs, ky0)
     coefs, flags, fund, fund2 = _kernel_operands(cfg, tables, pk_eff, plt_coefs,
-                                                 "halfspace_pack_zx")
-    n, half = cfg.ppd, cfg.ppd // 2
-    out = torch.empty((cfg.narray, 2, 2, half, n, n), dtype=torch.float32,
+                                                 "halfspace_pack_zx", ky0)
+    n, rows = cfg.ppd, pk_eff.shape[0]
+    out = torch.empty((cfg.narray, 2, 2, rows, n, n), dtype=torch.float32,
                       device=pk_eff.device)
     kernels.launch_pack_zx(
         tables.planes64, tables.mzx64, tables.czx64, pk_eff, coefs,
-        twiddles(n, pk_eff.device), out, n, cfg.narray, flags, fund, fund2,
+        twiddles(n, pk_eff.device), out, n, cfg.narray, flags, fund, fund2, ky0,
     )
     return out
 
@@ -134,6 +141,8 @@ def halfspace_pack(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs=None
         return pack_half_raw(cfg, tables, pk_eff.dtype, pk_eff, plt_coefs)
     coefs, flags, fund, fund2 = _kernel_operands(cfg, tables, pk_eff, plt_coefs,
                                                  "halfspace_pack")
+    if pk_eff.shape[0] != cfg.ppd // 2:
+        raise ValueError("halfspace_pack: want pk_eff of every generated plane")
     n, half = cfg.ppd, cfg.ppd // 2
     out = torch.empty((cfg.narray, 2, 2, half + 1, n, n), dtype=torch.float32,
                       device=pk_eff.device)
