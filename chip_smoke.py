@@ -11,7 +11,8 @@ script exits non-zero without printing a result:
    the kernels from csrc/ (one nvcc per source, in parallel) and print
    ptxas registers, shared memory, spills; fail on any stack frame or
    spill in the register-resident FFT kernels: the 16 axis DFT kernels
-   (zx, y), B1's 8 pack_rows_kernel and B2's 8 column kernels;
+   (zx, y), B1's 8 pack_rows_kernel and B2's 8 column kernels, and in
+   B4's 4 boxmuller_kernel instances;
 2. kernel B1 (halfspace_pack_zx) against its plain version on the card, at
    128^3 with example.par's PLT configuration and at 512^3 plain float32;
    and small cases at every n in [16, 2048] (SMALL_N): plain, PLT, fixed
@@ -21,7 +22,11 @@ script exits non-zero without printing a result:
    of place and in place (out=g, the main path's call); and small cases
    at every n in [16, 2048] with and without the Nyquist row, in place
    and out of place, on (2, 2, 2, ky, 3, 20) (a ragged last tile);
-4. kernel B4 (halfspace_boxmuller) against its plain version at 512^3;
+4. kernel B4 (halfspace_boxmuller) against its plain version at 512^3,
+   with and without a live mask, fixed power both ways, timed beside its
+   bound; at 1024^3 timed, its first and last 4 planes against the plain
+   version; small cases at every n in [16, 2048] on 1 and 35 planes (a
+   full y tile and a ragged end) at both ends of the half space;
    zx_dft (B6/B7) and y_dft (B8) against their plain versions (torch.fft)
    at the shapes the paths launch: zx on the 512^3 full grid and the
    1024^3 and 2048^3 pass-1 y-slabs, y on the 512^3 full grid, the 1024^3
@@ -130,7 +135,7 @@ SMALL = (("zx", (1, 2, 3, 16, 16), 0), ("zx", (1, 2, 3, 32, 32), 0),
          ("y", (1, 2, 1024, 1, 36), 0), ("y", (1, 2, 2048, 1, 20), 0),
          ("y", (1, 2, 2048, 3, 2), 0), ("zx", (1, 2, 3, 512, 512), 2))
 
-#: B1 and B2 correctness cases: every n of the kernels
+#: B1, B2 and B4 correctness cases: every n of the kernels
 SMALL_N = (16, 32, 64, 128, 256, 512, 1024, 2048)
 #: B1's configurations: name, PLT, extra .par keys
 B1_CONFIGS = (("plain", False, {}), ("PLT", True, {}),
@@ -267,7 +272,8 @@ def phase_card():
     for what, has, want in (
             ("axis DFT (zx, y)", lambda k: "axis_" in k and "C2rLoad" not in k, 16),
             ("B1 pack_rows_kernel", lambda k: "pack_rows_kernel" in k, 8),
-            ("B2 axis_cols_kernel<C2rLoad>", lambda k: "C2rLoad" in k, 8)):
+            ("B2 axis_cols_kernel<C2rLoad>", lambda k: "C2rLoad" in k, 8),
+            ("B4 boxmuller_kernel", lambda k: "boxmuller_kernel" in k, 4)):
         found = [ln for ln in report if has(ln.split(":")[0]) and "spill" in ln]
         check(len(found) == want, f"ptxas reported {len(found)} {what} kernels, want {want}")
         for ln in found:
@@ -369,39 +375,128 @@ def small_b2():
             del spm, p
 
 
-def phase_fullgrid_kernels():
-    """Phase 4: B4, zx and y against their plain versions; returns the
-    errors and the kernel/plain ms at 512^3."""
+def _b4_bound(tables, pk, live=None):
+    return bound(3 * nbytes(pk) + nbytes(live, tables.planes64, tables.mzx64,
+                                         tables.czx64), DRAW_OPS * pk.numel())
+
+
+def _b4_compare(k, p, what):
+    err = 0.0
+    for j, part in enumerate(("re", "im")):
+        _same_zeros(k[j], p[j], f"{what} D_{part}")
+        err = max(err, compare(k[j], p[j], B4_TOL, f"{what} D_{part} {tuple(k[j].shape)}"))
+    return err
+
+
+def small_b4():
+    """B4 on a few generated planes at every n: one plane, a full y tile
+    plus a ragged end (or all but one plane where the half space is no
+    deeper than a tile), at both ends of the half space, with and without
+    a live mask, fixed power both ways."""
     import torch
 
     from zeldovich_tpu_torch.ops.boxmuller import (
         halfspace_boxmuller, halfspace_boxmuller_plain,
     )
+    from zeldovich_tpu_torch.ops.modes_real import pk_effective
+
+    from zeldovich_tpu_torch import kernels
+
+    # the y planes a block of B4 walks, from the kernel's source
+    tile = int(re.search(r"constexpr int B4_TY = (\d+);",
+                         (kernels.CSRC / "boxmuller.cu").read_text()).group(1))
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    for n in SMALL_N:
+        half = n // 2
+        r = min(tile + 3, half - 1)
+        m = model_for(n, False)
+        for rows, ky0, with_live in ((1, 0, False), (r, 0, True), (r, half - r, False)):
+            pk = pk_effective(m.cfg, m.tables, torch.float32, (ky0, ky0 + rows))
+            live = ((torch.rand(pk.shape, device="cuda", generator=gen) > 0.2).float()
+                    if with_live else None)
+            for fixed in (False, True):
+                a = (m.tables, pk, fixed, live, ky0)
+                k = counted("halfspace_boxmuller", lambda: halfspace_boxmuller(*a))
+                _b4_compare(k, halfspace_boxmuller_plain(*a),
+                            f"B4 n={n} planes [{ky0}, {ky0 + rows}) fixed_power={fixed}"
+                            + (" live" if with_live else ""))
+                del k, a
+            del pk, live
+        del m
+        torch.cuda.empty_cache()
+
+
+def phase_b4():
+    """Phase 4's B4 part; returns its error and times at 512^3 and the
+    1024^3 readings."""
+    import torch
+
+    from zeldovich_tpu_torch.ops.boxmuller import (
+        halfspace_boxmuller, halfspace_boxmuller_plain,
+    )
+
+    say("== phase 4: B4 vs plain, 512^3 f32")
+    m = model_for(512, False)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    live = (torch.rand(m.pk_eff.shape, device="cuda", generator=gen) > 0.2).float()
+    err = 0.0
+    for fixed in (False, True):
+        for mask in (None, live):
+            a = (m.tables, m.pk_eff, fixed, mask)
+            k = counted("halfspace_boxmuller", lambda: halfspace_boxmuller(*a))
+            e = _b4_compare(k, halfspace_boxmuller_plain(*a),
+                            f"B4 fixed_power={fixed}" + ("" if mask is None else " live"))
+            if not fixed and mask is None:
+                err = e
+            del k
+    del live
+    a = (m.tables, m.pk_eff, False)
+    t = _turns(lambda: halfspace_boxmuller(*a), lambda: halfspace_boxmuller_plain(*a))
+    b = _b4_bound(m.tables, m.pk_eff)
+    fixed_ms = _time(lambda: halfspace_boxmuller(m.tables, m.pk_eff, True))
+    say(f"  B4 512^3 f32: kernel {t[0]:.3f} ms (fixed power {fixed_ms:.3f} ms), plain "
+        f"{t[1]:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
+        f"{100 * b['bound_ms'] / t[0]:.1f}% of it")
+    del m, a
+    torch.cuda.empty_cache()
+
+    say("== phase 4: B4 at 1024^3 f32, the first and last 4 planes vs plain")
+    m = model_for(1024, False)
+    more = {}
+    for fixed in (False, True):
+        k = counted("halfspace_boxmuller",
+                    lambda: halfspace_boxmuller(m.tables, m.pk_eff, fixed))
+        for ky0 in (0, 508):
+            span = slice(ky0, ky0 + 4)
+            p = halfspace_boxmuller_plain(m.tables, m.pk_eff[span], fixed, None, ky0)
+            _b4_compare(tuple(d[span] for d in k), p,
+                        f"B4 1024^3 planes [{ky0}, {ky0 + 4}) fixed_power={fixed}")
+        check(all(bool(torch.isfinite(d).all()) for d in k), "B4 1024^3: non-finite D")
+        del k, p
+        ms = sorted(_time(lambda: halfspace_boxmuller(m.tables, m.pk_eff, fixed))
+                    for _ in range(3))[1]
+        more["ms_1024_fixed" if fixed else "ms_1024"] = ms
+    b1024 = _b4_bound(m.tables, m.pk_eff)
+    more["bound_ms_1024"] = b1024["bound_ms"]
+    say(f"  B4 1024^3 f32: kernel {more['ms_1024']:.3f} ms (fixed power "
+        f"{more['ms_1024_fixed']:.3f} ms); bound {b1024['bound_ms']:.3f} ms "
+        f"({b1024['bound_by']}), {100 * b1024['bound_ms'] / more['ms_1024']:.1f}% of it")
+    del m
+    torch.cuda.empty_cache()
+    say("== phase 4: B4 small cases at every n")
+    small_b4()
+    return err, (*t, None, b), {"ms_fixed": fixed_ms, **more}
+
+
+def phase_fullgrid_kernels():
+    """Phase 4: B4, zx and y against their plain versions; returns the
+    errors, the kernel/plain ms at 512^3 and B4's other readings."""
+    import torch
+
     from zeldovich_tpu_torch.ops.fft import y_dft, y_dft_plain, zx_dft, zx_dft_plain
 
     errs, times = {}, {}
-    say("== phase 4: B4 vs plain, 512^3 f32")
-    m = model_for(512, False)
-    for fixed in (False, True):
-        a = (m.tables, m.pk_eff, fixed)
-        k = counted("halfspace_boxmuller", lambda: halfspace_boxmuller(*a))
-        p = halfspace_boxmuller_plain(*a)
-        for j, part in enumerate(("re", "im")):
-            err = compare(k[j], p[j], B4_TOL, f"B4 fixed_power={fixed} D_{part} "
-                                               f"{tuple(k[j].shape)}")
-            if not fixed:
-                errs["b4"] = max(errs.get("b4", 0.0), err)
-        del k, p
-    a = (m.tables, m.pk_eff, False)
-    times["b4"] = _turns(lambda: halfspace_boxmuller(*a),
-                         lambda: halfspace_boxmuller_plain(*a))
-    tb = m.tables
-    times["b4"] = (*times["b4"], None, bound(
-        3 * nbytes(m.pk_eff) + nbytes(tb.planes64, tb.mzx64, tb.czx64),
-        DRAW_OPS * m.pk_eff.numel()))
-    say(f"  B4 512^3 f32: kernel {times['b4'][0]:.3f} ms, plain {times['b4'][1]:.3f} ms")
-    del m, a
-    torch.cuda.empty_cache()
+    errs["b4"], times["b4"], b4_more = phase_b4()
 
     from zeldovich_tpu_torch.ops.synth import twiddles
 
@@ -447,7 +542,7 @@ def phase_fullgrid_kernels():
             times[name] = (*t, b)
         del x, out, c
         torch.cuda.empty_cache()
-    return errs, times
+    return errs, times, b4_more
 
 
 def _time(fn, reps=5):
@@ -1103,7 +1198,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_card()
     errs = phase_kernels()
-    full_errs, full_ms = phase_fullgrid_kernels()
+    full_errs, full_ms, b4_more = phase_fullgrid_kernels()
     per_kernel = phase_timing()
     phase_fullgrid_timing()
     b5_err, b5_ms = phase_b5()
@@ -1126,7 +1221,8 @@ def main() -> int:
         entry("c2r_y", "c2r.cu", "zeldovich_tpu/ops/pallas_fft.py:700",
               errs[("b2", 512)], per_kernel["b2"]),
         entry("halfspace_boxmuller", "boxmuller.cu",
-              "zeldovich_tpu/ops/pallas_synth.py:546", full_errs["b4"], full_ms["b4"]),
+              "zeldovich_tpu/ops/pallas_synth.py:546", full_errs["b4"], full_ms["b4"],
+              **b4_more),
         entry("zx_dft", "fft_axis.cu", "zeldovich_tpu/ops/pallas_fft.py:305",
               full_errs["zx"], full_ms["zx"],
               also_replaces="zeldovich_tpu/ops/pallas_fft.py:374"),

@@ -16,17 +16,25 @@ and measures, float32, CUDA events around several launches:
 * B1 (halfspace_pack_zx) and B2 (c2r_y, out of place) at 512^3 plain,
   and the tree's 512^3 plain half step (``Zeldovich.xspace_half_pair``)
   with its device time by kernel (torch.profiler);
+* the draw kernels, which share csrc/pcg.cuh: B4 (halfspace_boxmuller) at
+  512^3 and 1024^3, drawn and fixed power, B3 (halfspace_pack) at 512^3
+  and B5 (boxmuller) on the 16.8M-mode chunk of the y0 = 0 slab at 512^3,
+  each with a SHA-256 of its output's bytes (B1's too);
 * one 512^3 f_NL full-grid step: the wall of the step (median of 5) and
-  its device time by kernel.
+  its device time by kernel; the device time of one 512^3 CornerModes
+  (k_cutoff = 2) step and of one 1024^3 f_NL step.
 
 Each turn prints one JSON line; the parent process prints every turn and a table
-of medians per tree, and writes all turns to --out (JSON).  Compare trees
-only within one call: the card and its power limit are printed.
+of medians per tree, says for each hashed output whether every tree gave
+the same bits (and exits 1 if one did not), and writes all turns to --out
+(JSON).  Compare trees only within one call: the card and its power limit
+are printed.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -69,6 +77,45 @@ def _by_kernel(fn) -> dict:
     return dict(sorted(by.items(), key=lambda kv: -kv[1]))
 
 
+def _digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _draw_kernels(cs, res: dict):
+    """B4, B3 and B5 of the tree: ms and the digests of their outputs."""
+    import torch
+
+    from zeldovich_tpu_torch.ops.boxmuller import boxmuller, halfspace_boxmuller
+    from zeldovich_tpu_torch.ops.modes_real import draw_operands, slab_modes
+    from zeldovich_tpu_torch.ops.synth import halfspace_pack
+
+    res["b4"], res["bits"] = {}, res.get("bits", {})
+    for n in (512, 1024):
+        m = cs.model_for(n, False, device="cuda")
+        for fixed in (False, True):
+            key = f"{n}^3" + (" fixed power" if fixed else "")
+            res["b4"][key] = _per_call(
+                lambda: halfspace_boxmuller(m.tables, m.pk_eff, fixed), 10)
+            if n == 512 or not fixed:
+                res["bits"][f"B4 {key}"] = _digest(
+                    *halfspace_boxmuller(m.tables, m.pk_eff, fixed))
+        if n == 512:
+            a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
+            res["b3"] = _per_call(lambda: halfspace_pack(*a), 10)
+            res["bits"]["B3 512^3"] = _digest(halfspace_pack(*a))
+            ops = draw_operands(slab_modes(0, 64, 512, "cuda"), m.cfg, m.tables,
+                                torch.float32)
+            res["b5"] = _per_call(lambda: boxmuller(m.tables, *ops, False), 10)
+            res["bits"]["B5 16.8M modes"] = _digest(*boxmuller(m.tables, *ops, False))
+            del a, ops
+        del m
+        torch.cuda.empty_cache()
+
+
 def worker(root: Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -96,6 +143,7 @@ def worker(root: Path) -> dict:
     a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
     res["b1"] = _per_call(lambda: halfspace_pack_zx(*a), 10)
     g = halfspace_pack_zx(*a)
+    res["bits"] = {"B1 512^3": _digest(g)}
     res["b2"] = _per_call(lambda: c2r_y(g, 512), 10)
     del g
     torch.cuda.empty_cache()
@@ -115,6 +163,20 @@ def worker(root: Path) -> dict:
     by = _by_kernel(lambda: m.xspace_pair())
     res["fnl_device_ms"] = sum(by.values())
     res["fnl_kernels"] = dict(list(by.items())[:8])
+    del m
+    torch.cuda.empty_cache()
+
+    m = cs.model_for(512, False, device="cuda", **cs.CORNER)
+    _ = m.pk_eff
+    res["corner_device_ms"] = sum(_by_kernel(lambda: m.xspace_pair()).values())
+    del m
+    torch.cuda.empty_cache()
+    m = cs.model_for(1024, False, device="cuda", **cs.FNL)
+    _ = m.pk_eff
+    res["fnl1024_device_ms"] = sum(_by_kernel(lambda: m.xspace_pair()).values())
+    del m
+    torch.cuda.empty_cache()
+    _draw_kernels(cs, res)
     return res
 
 
@@ -156,6 +218,10 @@ def main() -> int:
     rows = [(f"{n} {s}", lambda r, n=n, s=s: r[n][str(s)])
             for n, shapes in (("zx", ZX_SHAPES), ("y", Y_SHAPES), ("zcols", ZCOLS_SHAPES))
             for s in shapes]
+    rows += [(f"B4 {k}", lambda r, k=k: r["b4"][k]) for k in turns[0]["b4"]]
+    rows += [("B3 512^3", lambda r: r["b3"]), ("B5 16.8M modes", lambda r: r["b5"]),
+             ("512^3 CornerModes step device", lambda r: r["corner_device_ms"]),
+             ("1024^3 f_NL step device", lambda r: r["fnl1024_device_ms"])]
     rows += [("B1 512^3", lambda r: r["b1"]), ("B2 512^3", lambda r: r["b2"]),
              ("512^3 plain half step", lambda r: r["half_step_ms"]),
              ("512^3 plain half step device", lambda r: sum(r["half_kernels"].values())),
@@ -164,7 +230,13 @@ def main() -> int:
     print(f"{'ms (median of 2 turns)':40s}" + "".join(f"{x:>10s}" for x in labels))
     for what, get in rows:
         print(f"{what:40s}" + "".join(f"{med(x, get):10.3f}" for x in labels))
-    return 0
+    same = True
+    for what in turns[0]["bits"]:
+        digests = {r["bits"][what] for r in turns}
+        same &= len(digests) == 1
+        print(f"bits of {what}: "
+              + ("identical in every turn" if len(digests) == 1 else "DIFFER between trees"))
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

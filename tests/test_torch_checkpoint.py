@@ -8,6 +8,10 @@ the JAX package's chunk directory ``zeldovich.kspace.ckpt``; the JAX
 one-shot run's.  The in-core one-shot run takes the half-spectrum route
 and the resumed run the full grid, so particles are compared to 1e-5 of
 the scale, not byte for byte (ROADMAP C5).
+
+``--part 2`` also resumes the JAX CLI's default in-core checkpoint, the
+complex ``(narray, Y, Z, X)`` grid of ``Zeldovich.kspace()`` (ROADMAP
+C9): the loader turns it into the pair layout one y-chunk at a time.
 """
 
 from pathlib import Path
@@ -20,10 +24,11 @@ import torch
 
 from zeldovich_tpu.models.pipeline import Zeldovich as JZeldovich
 from zeldovich_tpu.utils.checkpoint import load_kspace
+from zeldovich_tpu.utils.checkpoint import save_kspace as jax_save_kspace
 from zeldovich_tpu.utils.output import read_particles
 from zeldovich_tpu.utils.params import Parameters
 from zeldovich_tpu_torch.cli import main
-from zeldovich_tpu_torch.utils.checkpoint import save_kspace
+from zeldovich_tpu_torch.utils.checkpoint import load_kspace_pair, save_kspace
 
 torch.set_num_threads(1)
 
@@ -117,3 +122,89 @@ def test_part2_with_another_dtype_exits_1(tmp_path, capsys):
     assert main([str(par), "--device", "cpu", "--part", "2",
                  "--dtype", "float64"]) == 1
     assert "same .par and --dtype" in capsys.readouterr().err
+
+
+def _same_particles_tol(got_dir, want_dir, tol):
+    names = sorted(f.name for f in want_dir.glob("ic_*"))
+    assert names and names == sorted(f.name for f in got_dir.glob("ic_*"))
+    for name in names:
+        want = read_particles(want_dir / name, "RVdoubleZel")
+        got = read_particles(got_dir / name, "RVdoubleZel")
+        for f in ("i", "j", "k"):
+            np.testing.assert_array_equal(got[f], want[f])
+        for f in ("displ", "vel"):
+            np.testing.assert_allclose(got[f], want[f], rtol=0,
+                                       atol=tol * np.abs(want[f]).max())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-12)])
+def test_part2_resumes_a_jax_complex_checkpoint(tmp_path, case, dtype, tol, capsys):
+    """JAX ``Zeldovich.kspace()`` saved by the JAX ``save_kspace`` (what
+    ``python -m zeldovich_tpu --part 1`` writes on a backend with complex
+    support) resumes under the port's ``--part 2``; the ``ic_*`` equal a
+    one-shot port run of the same .par and dtype: float32 within the slice
+    tolerance of tests/test_torch_slice.py, float64 to 1e-12 of the scale.
+    ZD_Version=2 only: the JAX pair path ignores ZD_Version=1 (ROADMAP C6),
+    and v1 checkpoints are not held here."""
+    over = dict(CASES[case], ICFormat="RVdoubleZel")
+    par = _write_par(tmp_path / "p.par", tmp_path / "run", **over)
+    one = _write_par(tmp_path / "one.par", tmp_path / "one", **over)
+    ckpt = tmp_path / "run" / "zeldovich.kspace.ckpt"
+    k = JZeldovich(Parameters.from_file(par), dtype=getattr(jnp, dtype)).kspace()
+    assert k.shape == (4 if case == "plt" else 2, 16, 16, 16)
+    assert k.dtype == {"float32": jnp.complex64, "float64": jnp.complex128}[dtype]
+    (tmp_path / "run").mkdir()
+    # 4 y-chunks, so the conversion is seen to go chunk by chunk
+    jax_save_kspace(k, ckpt, target_bytes=k.nbytes // 4)
+    assert len(list(ckpt.glob("k_*.npy"))) == 4
+    flags = ["--device", "cpu", "--dtype", dtype]
+    assert main([str(par), *flags, "--part", "2"]) == 0
+    assert "Loading k-space checkpoint" in capsys.readouterr().err
+    assert not ckpt.exists()
+    assert main([str(one), *flags]) == 0
+    _same_particles_tol(tmp_path / "run", tmp_path / "one", tol)
+
+
+def test_load_kspace_pair_converts_chunk_by_chunk(tmp_path, monkeypatch):
+    """A complex (narray, Y, Z, X) checkpoint loads as stack([re, im],
+    axis=1); each y-chunk file is read once and no complex array larger
+    than a chunk is made."""
+    rng = np.random.default_rng(5)
+    k = (rng.normal(size=(2, 8, 4, 4)) + 1j * rng.normal(size=(2, 8, 4, 4)))
+    jax_save_kspace(k.astype(np.complex64), tmp_path / "ck", target_bytes=2 * 2 * 16 * 8)
+    assert len(list((tmp_path / "ck").glob("k_*.npy"))) == 4
+    loads, real_load = [], np.load
+    monkeypatch.setattr(np, "load", lambda f, *a, **kw: loads.append(
+        real_load(f, *a, **kw)) or loads[-1])
+    got = load_kspace_pair(tmp_path / "ck")
+    assert [c.shape for c in loads] == [(2, 2, 4, 4)] * 4
+    assert got.dtype == np.float32 and got.shape == (2, 2, 8, 4, 4)
+    want = np.stack([k.real, k.imag], axis=1).astype(np.float32)
+    np.testing.assert_array_equal(got, want)
+    # a pair checkpoint loads as it is
+    save_kspace(torch.from_numpy(want), tmp_path / "pair")
+    np.testing.assert_array_equal(load_kspace_pair(tmp_path / "pair"), want)
+
+
+@pytest.mark.parametrize("kind", ["other precision", "other shape", "half grid"])
+def test_part2_refuses_a_complex_checkpoint_it_cannot_take(tmp_path, capsys, kind):
+    par = _write_par(tmp_path / "p.par", tmp_path / "run")
+    (tmp_path / "run").mkdir()
+    shape, dtype = {"other precision": ((2, 16, 16, 16), np.complex128),
+                    "other shape": ((2, 8, 16, 16), np.complex64),
+                    "half grid": ((2, 2, 2, 9, 16, 16), np.float32)}[kind]
+    jax_save_kspace(np.zeros(shape, dtype), tmp_path / "run" / "zeldovich.kspace.ckpt")
+    assert main([str(par), "--device", "cpu", "--part", "2"]) == 1
+    err = capsys.readouterr().err
+    assert "same .par and --dtype" in err and str(shape) in err
+    assert not list((tmp_path / "run").glob("ic_*"))
+
+
+def test_part2_float64_on_the_card_names_a6(tmp_path, capsys, monkeypatch):
+    """A complex128 checkpoint (the JAX CLI's default) needs --dtype
+    float64, which the card does not run yet: exit 1 naming ROADMAP A6."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    par = _write_par(tmp_path / "p.par", tmp_path / "run")
+    assert main([str(par), "--part", "2", "--dtype", "float64"]) == 1
+    assert "ROADMAP A6" in capsys.readouterr().err

@@ -133,12 +133,46 @@ def test_memory_plan_counts_the_phi_grid(tmp_path, capsys, over, narrays):
 @pytest.mark.parametrize(
     "flags,item",
     [(["--sharded"], "A10"), (["--distributed"], "A10"),
-     (["--profile", "d"], "A11"), (["--dtype", "df64"], "A6")],
+     (["--profile", "d"], "A11"), (["--dtype", "df64"], "A6"),
+     (["--coordinator", "localhost:1234"], "A10"), (["--num-processes", "2"], "A10"),
+     (["--process-id", "0"], "A10")],
 )
 def test_unported_flags_exit_1(tmp_path, capsys, flags, item):
     par = _write_par(tmp_path / "p.par", tmp_path / "ic")
     assert cli.main([str(par), "--device", "cpu", *flags]) == 1
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_pair_flag_changes_no_output_byte(tmp_path, capsys):
+    """--pair (the JAX CLI's complex-free route) is accepted and ignored:
+    the port is always the pair route."""
+    runs = {}
+    for name, flags in (("none", []), ("pair", ["--pair"])):
+        par = _write_par(tmp_path / f"{name}.par", tmp_path / name)
+        assert cli.main([str(par), "--device", "cpu", *flags]) == 0
+        runs[name] = {f.name: f.read_bytes() for f in (tmp_path / name).glob("ic_*")}
+    assert "not ported" not in capsys.readouterr().err
+    assert len(runs["none"]) == 8 and runs["pair"] == runs["none"]
+
+
+@pytest.mark.parametrize("fmt,flags,warned", [
+    ("RVdoubleZel", [], True), ("RVdoubleZel", ["--dtype", "float32"], False),
+    ("RVdoubleZel", ["--dtype", "float64"], False), ("RVZel", [], False),
+    ("Zeldovich", [], True), ("ZelSimple", [], False),
+])
+def test_float32_default_is_announced_for_a_double_format(tmp_path, capsys, fmt,
+                                                          flags, warned):
+    """The port computes in float32 unless told otherwise, where the JAX
+    CLI defaults to float64: a .par that asks for a double ic_* format
+    without --dtype gets one stderr line saying so, and no other run does."""
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic", ICFormat=fmt,
+                     ZD_qPLT=int(fmt.startswith("RV")))  # PLT needs velocities
+    assert cli.main([str(par), "--device", "cpu", *flags]) == 0
+    err = capsys.readouterr().err
+    line = [ln for ln in err.splitlines() if "float32 rounding" in ln]
+    assert len(line) == (1 if warned else 0)
+    if warned:
+        assert "--dtype float64 --device cpu" in line[0] and "A6" in line[0]
 
 
 @pytest.mark.parametrize("flags", [

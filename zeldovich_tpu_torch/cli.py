@@ -10,17 +10,25 @@ checkpoint paths and exit codes.
 
   --device cuda (default) runs on the card and exits 1 when there is none;
   --device cpu runs the plain tensor-op versions (for tests and checks).
-  --dtype float32 (default; the kernels' type) or float64 (--device cpu).
+  --dtype float32 (the default and the kernels' type, where the JAX CLI
+      defaults to float64) or float64 (--device cpu only until ROADMAP A6).
+      A .par that asks for a double ic_* format (RVdoubleZel, Zeldovich)
+      without --dtype gets one stderr line saying that its doubles carry
+      float32 rounding.
   --out-of-core [--backing ram|disk] [--slab-mb N] streams y- and z-slabs
       of N MB through a host staging buffer (grids larger than the card).
   --part 1 writes the k-space checkpoint and stops: in-core the full grid
       as a chunk directory zeldovich.kspace.ckpt, out-of-core the pass-1
       stage as the memmap zeldovich.kspace.mm, both in the output
       directory; --part 2 resumes from it, writes the particles and
-      removes it.
+      removes it.  In core, --part 2 also takes the JAX CLI's complex
+      (narray, Y, Z, X) checkpoint of the run's precision.
+  --pair is accepted and changes nothing: the port is always the
+      complex-free pair route.
 
-Flags of the JAX CLI that are not ported yet exit 1 naming the ROADMAP
-item that will bring them.
+Flags of the JAX CLI that are not ported yet (--sharded, --distributed,
+--coordinator, --num-processes, --process-id, --profile, --dtype df64)
+exit 1 naming the ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ import time
 _NOT_PORTED = {
     "--sharded": ("sharded", "A10 (several devices)"),
     "--distributed": ("distributed", "A10 (several hosts)"),
+    "--coordinator": ("coordinator", "A10 (several hosts)"),
+    "--num-processes": ("num_processes", "A10 (several hosts)"),
+    "--process-id": ("process_id", "A10 (several hosts)"),
     "--profile": ("profile", "A11 (device traces)"),
 }
 
@@ -44,8 +55,12 @@ def main(argv=None):
     )
     ap.add_argument("param_file", help="ParseHeader-style parameter file")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--dtype", choices=("float64", "float32", "df64"),
-                    default="float32")
+    ap.add_argument(
+        "--dtype", choices=("float64", "float32", "df64"), default=None,
+        help="float32 (the default and the CUDA kernels' type; the JAX CLI "
+        "defaults to float64) or float64 (with --device cpu until ROADMAP A6 "
+        "runs it on the card)",
+    )
     ap.add_argument("--part", type=int, choices=(1, 2), default=None)
     ap.add_argument("--profile", metavar="DIR", default=None)
     ap.add_argument("--out-of-core", action="store_true")
@@ -53,10 +68,19 @@ def main(argv=None):
     ap.add_argument("--slab-mb", type=int, default=2048)
     ap.add_argument("--sharded", action="store_true")
     ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--pair", action="store_true",
+                    help="accepted for the JAX CLI's command lines; the port "
+                    "is always the complex-free pair route")
     args = ap.parse_args(argv)
+    dtype_given = args.dtype is not None
+    args.dtype = args.dtype or "float32"
 
     for flag, (attr, item) in _NOT_PORTED.items():
-        if getattr(args, attr):
+        given = getattr(args, attr)
+        if given is not None and given is not False:
             print(f"{flag} is not ported to the torch package yet: ROADMAP "
                   f"{item}; use python -m zeldovich_tpu", file=sys.stderr)
             return 1
@@ -79,7 +103,7 @@ def main(argv=None):
         return 1
 
     from .models.pipeline import Zeldovich
-    from .utils.output import OutputWriter, setup_output_dir
+    from .utils.output import OUTPUT_DTYPES, OutputWriter, setup_output_dir
     from .utils.params import ParameterError, Parameters
     from .utils.parseheader import ParseError
     from .utils.streamio import stream_xspace
@@ -97,6 +121,13 @@ def main(argv=None):
         print(f"Invalid parameters: {e}", file=sys.stderr)
         return 1
     print(f"Generating ICs for ppd = {param.ppd}", file=sys.stderr)
+    fmt = OUTPUT_DTYPES.get(param.ICFormat)  # an unknown format fails at the writer
+    if not dtype_given and fmt is not None and fmt["displ"].base.itemsize == 8:
+        print(f"ICFormat {param.ICFormat} stores doubles, but this run computes "
+              "in float32 (the port's default; python -m zeldovich_tpu defaults "
+              "to float64): the doubles carry float32 rounding. Pass --dtype "
+              "float64 --device cpu for parity until ROADMAP A6 runs float64 on "
+              "the card", file=sys.stderr)
 
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     itemsize = 16 if args.dtype == "float64" else 8
@@ -151,18 +182,25 @@ def main(argv=None):
         _report_rate(param, t_total)
         return 0
 
-    from .utils.checkpoint import load_kspace, remove_kspace, save_kspace
+    from .utils.checkpoint import (
+        kspace_layout, load_kspace_pair, remove_kspace, save_kspace,
+    )
 
     if args.part == 2:
         with timers.phase("Loading k-space checkpoint"):
-            kgrid = torch.from_numpy(load_kspace(ckpt))
-            want = (param.narray, 2, param.ppd, param.ppd, param.ppd)
-            if tuple(kgrid.shape) != want or kgrid.dtype != dtype:
-                print(f"checkpoint holds {kgrid.dtype} {tuple(kgrid.shape)} but "
-                      f"this run expects {dtype} {want} (part 1/2 must use the "
-                      "same .par and --dtype)", file=sys.stderr)
+            # the port's pair layout, or the JAX CLI's complex grid of the
+            # same precision (split into the pair layout while it loads)
+            grid = (param.ppd,) * 3
+            takes = {(param.narray, 2, *grid): args.dtype,
+                     (param.narray, *grid): f"complex{8 * itemsize}"}
+            shape, held, _ = kspace_layout(ckpt)
+            if takes.get(shape) != held.name:
+                print(f"checkpoint holds {held.name} {shape} but this run expects "
+                      + " or ".join(f"{d} {s}" for s, d in takes.items())
+                      + " (part 1/2 must use the same .par and --dtype)",
+                      file=sys.stderr)
                 return 1
-            kgrid = kgrid.to(args.device)
+            kgrid = torch.from_numpy(load_kspace_pair(ckpt)).to(args.device)
             sync()
     else:
         with timers.phase("Mode synthesis (+ f_NL phi pass)"):

@@ -14,17 +14,37 @@
 // (half, Z, X) float32.  live is optional (zero rules folded into pk when
 // absent: sqrt(-0 log R) == 0).
 //
-// What bounds it.  It reads pk (and live) and writes two floats: 12-16 B
-// per mode of device memory, 0.8 GB at 512^3.  The (z, x) jump maps
-// (32 B per (z, x)) are read once per y plane, 8 MB at 512^2, and stay in
-// the 50 MB L2.  Per mode it does two 128-bit multiplies, two XSL-RR
-// permutations, a log and a short polynomial: a few hundred integer and
-// float operations, about as much time as the bytes take.
+// What bounds it.  Issue slots, then bytes.  Device memory: pk (and live)
+// read and two floats written, 12-16 B a mode, 0.8 GB at 512^3 and 6.4 GB
+// at 1024^3.  Per mode two 128-bit multiply-adds (each ten 32-bit
+// multiplies with their carries), two XSL-RR permutations, four
+// int-to-float conversions, a logarithm, a correctly rounded square root
+// and the sine/cosine polynomial: a SASS count of 151 a mode.  Measured
+// on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6,
+// scripts/torch_b4_floor.py): 0.41 ms at 512^3 and 3.23 ms at 1024^3, 59%
+// and 60% of the bytes bound; the same loads and stores without the draw
+// arithmetic take 0.30 and 2.61 ms, the arithmetic without the table
+// loads 0.43 and 3.36 ms, so the draws' issue slots set the floor (0.73
+// and 0.78 of the warp instructions the 132 SMs' four schedulers can
+// issue at the SM clock read under load, 1.98 and 1.89 GHz).  The
+// (z, x) jump maps are 32 B a (z, x).  The first design, a thread a mode,
+// read them once for every y plane and counted on L2 to keep them: 2.7
+// times the device-memory bytes through L2, 0.53 ms at 512^3, and 7.26 ms
+// at 1024^3, where the 33.5 MB of maps no longer stay in L2.
 //
-// Design.  One thread per mode, threads consecutive along x so that every
-// load and store is coalesced; one block row of x per (z, y).  The 128-bit
-// arithmetic is native unsigned __int128 (pcg.cuh), not the TPU kernel's
-// 16-bit limb columns.
+// Design.  A thread owns one (z, x) column, threads consecutive along the
+// flat (z, x) index (x fastest), so every pk load and D store of a warp is
+// one 128-byte run at any n.  It loads its column's jump map once into
+// registers (8 registers) and walks a tile of B4_TY consecutive y planes,
+// whose start states the block has put into shared memory; map traffic
+// falls by B4_TY.  The walk goes B4_U planes at a time: every pk (and
+// live) load of the group first, then the group's integer chains, then
+// its float halves, so that independent chains overlap inside a thread as
+// well as between warps.  pk, live and D are touched once and go around
+// the caches' keep order (__ldcs / __stcs).  Fixed power and "has live"
+// are template parameters: no branch sits between a load and its use.
+// The 128-bit arithmetic is native unsigned __int128 (pcg.cuh), not the
+// TPU kernel's 16-bit limb columns.
 
 #include "pcg.cuh"
 
@@ -33,24 +53,73 @@ namespace {
 using zt::u128;
 using zt::u64;
 
-__global__ void __launch_bounds__(256) boxmuller_kernel(
+// Tile constants.  tests/torch_b4_model.py models this schedule with the
+// same numbers, read from these lines.
+constexpr int B4_THREADS = 256;
+constexpr int B4_TY = 32;         // y planes a block walks
+constexpr int B4_U = 4;           // planes whose loads are issued together
+constexpr int B4_MIN_BLOCKS = 4;  // blocks a SM the register budget allows
+
+template <bool FIXED, bool LIVE>
+__global__ void __launch_bounds__(B4_THREADS, B4_MIN_BLOCKS) boxmuller_kernel(
     const u64* __restrict__ planes, const u64* __restrict__ mzx,
     const u64* __restrict__ czx, const float* __restrict__ pk,
     const float* __restrict__ live, float* __restrict__ re,
-    float* __restrict__ im, int n, int fixed_power) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y, y = blockIdx.z;
-  if (x >= n) return;
+    float* __restrict__ im, int n, int half) {
+  __shared__ u64 sp[2 * B4_TY];  // the tile's plane states, (lo, hi) each
+  const int y0 = blockIdx.y * B4_TY;
+  const int rows = min(B4_TY, half - y0);
+  for (int i = threadIdx.x; i < 2 * rows; i += B4_THREADS)
+    sp[i] = __ldg(planes + 2 * (size_t)y0 + i);
+  __syncthreads();
   const size_t nn = (size_t)n * n;
-  const size_t zx = (size_t)z * n + x;
-  const size_t idx = (size_t)y * nn + zx;
+  const size_t zx = (size_t)blockIdx.x * B4_THREADS + threadIdx.x;
+  if (zx >= nn) return;
   const u128 m = zt::load_u128(mzx + zx, mzx + nn + zx);
   const u128 c = zt::load_u128(czx + zx, czx + nn + zx);
-  const u128 st = zt::load_u128(planes + 2 * y, planes + 2 * y + 1);
-  const float l = live == nullptr ? 1.0f : __ldg(live + idx);
-  const float2 D = zt::gaussian_mode(m * st + c, __ldg(pk + idx), fixed_power, l);
-  re[idx] = D.x;
-  im[idx] = D.y;
+  size_t idx = (size_t)y0 * nn + zx;
+  int j = 0;
+  for (; j + B4_U <= rows; j += B4_U, idx += B4_U * nn) {
+    float p[B4_U], l[B4_U];
+    float2 rt[B4_U];
+#pragma unroll
+    for (int u = 0; u < B4_U; ++u) {
+      p[u] = __ldcs(pk + idx + u * nn);
+      l[u] = LIVE ? __ldcs(live + idx + u * nn) : 1.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < B4_U; ++u) {
+      const u128 st = ((u128)sp[2 * (j + u) + 1] << 64) | (u128)sp[2 * (j + u)];
+      rt[u] = zt::mode_uniforms(m * st + c);
+    }
+#pragma unroll
+    for (int u = 0; u < B4_U; ++u) {
+      const float2 D = zt::mode_deviate(rt[u], p[u], FIXED, l[u]);
+      __stcs(re + idx + u * nn, D.x);
+      __stcs(im + idx + u * nn, D.y);
+    }
+  }
+  for (; j < rows; ++j, idx += nn) {  // the ragged end of the last tile
+    const float pv = __ldcs(pk + idx);
+    const float lv = LIVE ? __ldcs(live + idx) : 1.0f;
+    const u128 st = ((u128)sp[2 * j + 1] << 64) | (u128)sp[2 * j];
+    const float2 D = zt::gaussian_mode(m * st + c, pv, FIXED, lv);
+    __stcs(re + idx, D.x);
+    __stcs(im + idx, D.y);
+  }
+}
+
+template <bool FIXED, bool LIVE>
+cudaError_t launch_b4(const void* planes, const void* mzx, const void* czx,
+                      const void* pk, const void* live, void* re, void* im, int n,
+                      int half, cudaStream_t stream) {
+  const size_t nn = (size_t)n * n;
+  const dim3 grid((unsigned)((nn + B4_THREADS - 1) / B4_THREADS),
+                  (unsigned)((half + B4_TY - 1) / B4_TY));
+  boxmuller_kernel<FIXED, LIVE><<<grid, B4_THREADS, 0, stream>>>(
+      (const u64*)planes, (const u64*)mzx, (const u64*)czx, (const float*)pk,
+      (const float*)live, (float*)re, (float*)im, n, half);
+  return cudaGetLastError();
 }
 
 // B5: the same deviates at per-mode source indices.
@@ -115,16 +184,21 @@ extern "C" int zt_b5_boxmuller_at(const void* sy, const void* sz, const void* sx
   return (int)cudaGetLastError();
 }
 
+// planes: the start states of the `half` planes to generate (the caller
+// offsets the table to its first plane); pk, live, re, im: (half, n, n).
 extern "C" int zt_b4_boxmuller(const void* planes, const void* mzx, const void* czx,
                                const void* pk, const void* live, void* re, void* im,
                                int n, int half, int fixed_power, int device,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int threads = n < 256 ? n : 256;
-  boxmuller_kernel<<<dim3((n + threads - 1) / threads, n, half), threads, 0,
-                     (cudaStream_t)stream>>>(
-      (const u64*)planes, (const u64*)mzx, (const u64*)czx, (const float*)pk,
-      (const float*)live, (float*)re, (float*)im, n, fixed_power);
-  return (int)cudaGetLastError();
+  if (half <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (fixed_power)
+    err = live ? launch_b4<true, true>(planes, mzx, czx, pk, live, re, im, n, half, s)
+               : launch_b4<true, false>(planes, mzx, czx, pk, live, re, im, n, half, s);
+  else
+    err = live ? launch_b4<false, true>(planes, mzx, czx, pk, live, re, im, n, half, s)
+               : launch_b4<false, false>(planes, mzx, czx, pk, live, re, im, n, half, s);
+  return (int)err;
 }

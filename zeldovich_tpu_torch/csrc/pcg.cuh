@@ -1,5 +1,5 @@
 // The pcg64 draw chain on the device, shared by the synthesis kernels
-// (csrc/synth.cu, B1; csrc/boxmuller.cu, B4).
+// (csrc/synth.cu, B1 and B3; csrc/boxmuller.cu, B4 and B5).
 //
 // A mode's first-draw state is one 128-bit multiply-add of its y-plane
 // start state with the precomposed, pre-bumped (z, x) jump map (see
@@ -71,20 +71,32 @@ __device__ __forceinline__ void sincos_2pi(float T, float* c_out, float* s_out) 
   *s_out = sign * s;
 }
 
-// One mode's deviate D = live * cgauss(pk) from its first-draw state s1:
-// draws R and T, amp = sqrt(pk) (fixed power) or sqrt(-pk log R), then
-// (amp cos 2 pi T, amp sin 2 pi T), each product rounded as the JAX
-// package rounds it (live * amp first, as its _draw_chain does).
-__device__ __forceinline__ float2 gaussian_mode(u128 s1, float pk, bool fixed_power,
-                                                float live) {
+// A mode's two uniforms (R, T) from its first-draw state s1: the integer
+// half of its work (the LCG step to the second state, two XSL-RR draws).
+__device__ __forceinline__ float2 mode_uniforms(u128 s1) {
   const u128 s2 = s1 * pcg_mult() + pcg_inc();
-  const float R = fast_uniform(xsl_rr(s1));
-  const float T = fast_uniform(xsl_rr(s2));
-  float amp = fixed_power ? sqrtf(pk) : sqrtf(-pk * logf(R));
+  return make_float2(fast_uniform(xsl_rr(s1)), fast_uniform(xsl_rr(s2)));
+}
+
+// The float half: D = live * cgauss(pk) from (R, T), amp = sqrt(pk) (fixed
+// power) or sqrt(-pk log R), then (amp cos 2 pi T, amp sin 2 pi T), each
+// product rounded as the JAX package rounds it (live * amp first, as its
+// _draw_chain does).
+__device__ __forceinline__ float2 mode_deviate(float2 RT, float pk, bool fixed_power,
+                                               float live) {
+  float amp = fixed_power ? sqrtf(pk) : sqrtf(-pk * logf(RT.x));
   amp = __fmul_rn(live, amp);
   float cv, sv;
-  sincos_2pi(T, &cv, &sv);
+  sincos_2pi(RT.y, &cv, &sv);
   return make_float2(__fmul_rn(amp, cv), __fmul_rn(amp, sv));
+}
+
+// One mode's deviate from its first-draw state.  A kernel that walks
+// several modes a thread calls the two halves itself, so that one mode's
+// integer chain can run beside another's logarithm (B4).
+__device__ __forceinline__ float2 gaussian_mode(u128 s1, float pk, bool fixed_power,
+                                                float live) {
+  return mode_deviate(mode_uniforms(s1), pk, fixed_power, live);
 }
 
 }  // namespace zt

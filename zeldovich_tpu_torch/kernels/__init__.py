@@ -190,7 +190,8 @@ def launch_c2r_y(g, tw, out, n, narray, has_nyq):
 
 def launch_boxmuller(planes64, mzx64, czx64, pk, live, re, im, n, half,
                      fixed_power):
-    """B4: draws + Box-Muller over the generated half space into re, im."""
+    """B4: draws + Box-Muller over the `half` generated planes whose start
+    states are planes64's rows, into re, im."""
     lib = library()
     rc = lib.zt_b4_boxmuller(
         planes64.data_ptr(), mzx64.data_ptr(), czx64.data_ptr(), pk.data_ptr(),

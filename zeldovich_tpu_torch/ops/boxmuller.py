@@ -2,11 +2,14 @@
 
 Ports of ``zeldovich_tpu/ops/pallas_synth.py``:
 
-* ``halfspace_boxmuller(tables, pk, fixed_power, live=None)`` (B4,
+* ``halfspace_boxmuller(tables, pk, fixed_power, live=None, ky0=0)`` (B4,
   ``halfspace_boxmuller_pallas``) returns ``(D_re, D_im)`` of shape
-  ``(half, Z, X)``: per mode of the generated half space the first-draw
-  state ``plane[y] * mzx[z, x] + czx[z, x]``, two XSL-RR draws and
-  Box-Muller against ``pk`` (times ``live`` where given);
+  ``(rows, Z, X)``: per mode of the generated planes [ky0, ky0 + rows)
+  (all ``half`` of them on the full-grid path) the first-draw state
+  ``plane[y] * mzx[z, x] + czx[z, x]``, two XSL-RR draws and Box-Muller
+  against ``pk`` (times ``live`` where given).  The kernel gives a thread
+  one (z, x) column, its jump map in registers, and walks tiles of y
+  planes;
 * ``boxmuller(tables, sy, sz, sx, pk, live, fixed_power)`` (B5,
   ``boxmuller_pallas``) does the same at per-mode source indices: the
   state ``plane[sy] * mzx[sz, sx] + czx[sz, sx]``, any shape.  The TPU
@@ -28,17 +31,25 @@ from .modes_real import draw_planes, gaussian, y_chunk
 from .synth import check_kernel_size, check_operands
 
 
+def _check_planes(tables: SynthTables, rows: int, ky0: int):
+    half = tables.planes64.shape[0]
+    if not 0 <= ky0 < ky0 + rows <= half:
+        raise ValueError(
+            f"halfspace_boxmuller: planes [{ky0}, {ky0 + rows}) outside [0, {half})")
+
+
 def halfspace_boxmuller_plain(tables: SynthTables, pk, fixed_power: bool,
-                              live=None):
+                              live=None, ky0: int = 0):
     """Plain version of B4: the draw chain in int64-limb torch ops,
     chunked over y."""
-    half, ppd = pk.shape[0], pk.shape[-1]
+    rows, ppd = pk.shape[0], pk.shape[-1]
+    _check_planes(tables, rows, ky0)
     re, im = torch.empty_like(pk), torch.empty_like(pk)
-    cy = y_chunk(half, ppd, 1 << 22)
-    for y0 in range(0, half, cy):
+    cy = y_chunk(rows, ppd, 1 << 22)
+    for y0 in range(0, rows, cy):
         y1 = y0 + cy
         re[y0:y1], im[y0:y1] = draw_planes(
-            tables, y0, y1, pk[y0:y1], fixed_power,
+            tables, ky0 + y0, ky0 + y1, pk[y0:y1], fixed_power,
             None if live is None else live[y0:y1],
         )
     return re, im
@@ -52,26 +63,31 @@ def _table_operands(tables: SynthTables, n: int, half: int) -> dict:
     }
 
 
-def halfspace_boxmuller(tables: SynthTables, pk, fixed_power: bool, live=None):
-    """D over the generated half space: (D_re, D_im), each (half, Z, X).
+def halfspace_boxmuller(tables: SynthTables, pk, fixed_power: bool, live=None,
+                        ky0: int = 0):
+    """D over generated planes: (D_re, D_im), each (rows, Z, X).
 
-    pk: (half, Z, X) P(k), the zero rules optionally folded in (pk = 0
-    zeroes a mode exactly); live: optional (half, Z, X) 0/1 mask.
+    pk: (rows, Z, X) P(k) of the generated planes [ky0, ky0 + rows), all
+    half of them on the full-grid path, the zero rules optionally folded
+    in (pk = 0 zeroes a mode exactly); live: optional (rows, Z, X) 0/1
+    mask.
     """
     dev = pk.device
     if dev.type == "cpu":
-        return halfspace_boxmuller_plain(tables, pk, fixed_power, live)
+        return halfspace_boxmuller_plain(tables, pk, fixed_power, live, ky0)
     if dev.type != "cuda":
         raise ValueError(f"halfspace_boxmuller: no kernel for device {dev}")
-    half, n = pk.shape[0], pk.shape[-1]
+    rows, n = pk.shape[0], pk.shape[-1]
     check_kernel_size(n)
-    want = {"pk": (pk, (half, n, n), torch.float32), **_table_operands(tables, n, half)}
+    _check_planes(tables, rows, ky0)
+    want = {"pk": (pk, (rows, n, n), torch.float32),
+            **_table_operands(tables, n, tables.planes64.shape[0])}
     if live is not None:
-        want["live"] = (live, (half, n, n), torch.float32)
+        want["live"] = (live, (rows, n, n), torch.float32)
     check_operands(want, dev)
     re, im = torch.empty_like(pk), torch.empty_like(pk)
-    kernels.launch_boxmuller(tables.planes64, tables.mzx64, tables.czx64, pk,
-                             live, re, im, n, half, fixed_power)
+    kernels.launch_boxmuller(tables.planes64[ky0:ky0 + rows], tables.mzx64,
+                             tables.czx64, pk, live, re, im, n, rows, fixed_power)
     return re, im
 
 
