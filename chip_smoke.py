@@ -12,7 +12,10 @@ script exits non-zero without printing a result:
    ptxas registers, shared memory, spills; fail on any stack frame or
    spill in the register-resident FFT kernels: the 16 axis DFT kernels
    (zx, y), B1's 8 pack_rows_kernel and B2's 8 column kernels, and in
-   B4's 4 boxmuller_kernel instances;
+   B4's 4 boxmuller_kernel instances, float32 and float64 alike (a
+   float64 draw kernel may show the 40-byte buffer of the library
+   sincos's large-argument path, which ptxas lists beside it); count the
+   float64 operations a mode of the float64 draw chain from B5's SASS;
 2. kernel B1 (halfspace_pack_zx) against its plain version on the card, at
    128^3 with example.par's PLT configuration and at 512^3 plain float32;
    and small cases at every n in [16, 2048] (SMALL_N): plain, PLT, fixed
@@ -70,13 +73,27 @@ script exits non-zero without printing a result:
    through the model API (kspace_half_pair -> xspace_half_pair) at 256^3
    against the fused run; --part 1 then --part 2 at 128^3, in core and
    out of core, against the one-shot run.  Each run must launch the
-   kernels of its path and no other.
+   kernels of its path and no other.  Those runs pass --dtype float32.
+   Then float64, with no --dtype (the CLI's default): example.par as it
+   stands, then RVdoubleZel doubles held to 1e-12: 128^3 PLT and 128^3 f_NL + PLT against the
+   plain route, --dtype df64 against the first, 128^3 ZD_Version=1,
+   256^3 plain in core, by
+   the separate-kernel route and --out-of-core, --part 1 then --part 2 at
+   128^3, and --part 2 alone on a complex128 (narray, Y, Z, X) checkpoint.
+
+Phases 2 to 8 run twice, in float32 and in float64 (the double instances
+of every kernel: against the plain versions to 1e-12 of the largest value
+at every n in [16, 2048] and at the path shapes, the 512^3 PLT half step,
+the 512^3 f_NL step, the 1024^3 steps with their peaks, torch.fft on
+complex128 as the library call); phase 9 is float32.
 
 Kernel times are CUDA events around several launches, per launch.  The
-last two lines are the kernel JSON summary (each kernel's launches on the
-end-to-end runs, error, times, the bound: the larger of its bytes over
-3.35 TB/s and its float32 operations over 67 TFLOP/s, and the library
-call's time where one exists) and the result line
+last two lines are the kernel JSON summary (every kernel once per element
+type with its dtype: its launches on that type's end-to-end runs, error,
+times, the bound: the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s (float32) or 33.5 TFLOP/s (float64, the
+card's vector rate), and the library call's time where one exists) and
+the result line
 {"ok": true, "device": {...}}.  Nothing of JAX or of the JAX package is
 imported: the port has its own copies of the host modules (parameters,
 power spectrum, host pcg64, the v1 MT19937 stream, the ic_* writer); only
@@ -104,14 +121,22 @@ ASSETS = ROOT / "zeldovich_tpu" / "assets"
 B1_TOL, B2_TOL, ZERO_TOL, PARTICLE_TOL = 1e-5, 2e-6, 1e-6, 1e-5
 B4_TOL, DFT_TOL = 1e-5, 1e-5
 B5_TOL, B3_TOL, ROUTE_TOL = 1e-5, 1e-5, 1e-5
+#: float64: every kernel and route against its plain version, the zeros
+#: and the particles, all relative to the largest value
+F64_TOL = 1e-12
 
-#: NVIDIA H100 SXM data sheet: device memory rate, float32 peak (no tensor
-#: cores); a kernel's bound is the larger of its bytes and its operations
-#: over these
-HBM_BPS, F32_OPS = 3.35e12, 67e12
+#: NVIDIA H100 SXM data sheet: device memory rate, float32 and float64
+#: vector peaks (no tensor cores); a kernel's bound is the larger of its
+#: bytes and its operations over these
+HBM_BPS, F32_OPS, F64_OPS = 3.35e12, 67e12, 33.5e12
 #: 32-bit operations a mode of the draw kernels (B1, B3-B5): the pcg64
 #: jump (one 128-bit multiply-add), two XSL-RR draws and Box-Muller
 DRAW_OPS = 100
+#: float64 operations a mode of the float64 draw kernels on top of the
+#: integer chain (the library's log, sqrt and sincos): counted from B5's
+#: SASS in phase 1 (_f64_draw_ops), a multiply-add as two
+DRAW_F64_OPS = None
+TAG = {"float32": "f32", "float64": "f64"}
 
 #: zx (B6/B7) and y (B8) at the shapes the paths launch: the 512^3 full
 #: grid, the 1024^3 and 2048^3 out-of-core slabs (2.15 GB each) and a thin
@@ -134,6 +159,9 @@ SMALL = (("zx", (1, 2, 3, 16, 16), 0), ("zx", (1, 2, 3, 32, 32), 0),
          ("y", (1, 2, 256, 3, 20), 0), ("y", (1, 2, 512, 3, 20), 0),
          ("y", (1, 2, 1024, 1, 36), 0), ("y", (1, 2, 2048, 1, 20), 0),
          ("y", (1, 2, 2048, 3, 2), 0), ("zx", (1, 2, 3, 512, 512), 2))
+#: float64 alone (a float64 thread moves one column): an odd Bz * X
+SMALL_F64 = (("y", (1, 2, 64, 3, 7), 0), ("y", (1, 2, 512, 1, 21), 0),
+             ("y", (1, 2, 2048, 1, 5), 1))
 
 #: B1, B2 and B4 correctness cases: every n of the kernels
 SMALL_N = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -186,7 +214,11 @@ def par_text(ppd: int, outdir, plt: bool, seed: int = 12346, **extra) -> str:
     return "".join(f"{k} = {v}\n" for k, v in keys.items())
 
 
-def model_for(ppd, plt, device="cuda", **extra):
+def tol_for(dt: str, f32_tol: float) -> float:
+    return f32_tol if dt == "float32" else F64_TOL
+
+
+def model_for(ppd, plt, device="cuda", dt="float32", **extra):
     import torch
 
     from zeldovich_tpu_torch.models.pipeline import Parameters, Zeldovich
@@ -198,13 +230,16 @@ def model_for(ppd, plt, device="cuda", **extra):
     finally:
         shutil.rmtree(tmp)
     with contextlib.redirect_stderr(io.StringIO()):
-        return Zeldovich(param, dtype=torch.float32, device=device)
+        return Zeldovich(param, dtype=getattr(torch, dt), device=device)
 
 
 def compare(k, p, tol, what):
-    """max|k - p| <= tol * max|p|, and matching zeros (to ZERO_TOL)."""
+    """max|k - p| <= tol * max|p|, and matching zeros (to ZERO_TOL;
+    float64 to F64_TOL)."""
     import torch
 
+    check(k.dtype == p.dtype, f"{what}: kernel gave {k.dtype}, plain {p.dtype}")
+    ztol = ZERO_TOL if k.dtype == torch.float32 else F64_TOL
     scale = p.abs().max().item()
     err = (k - p).abs().max().item()
     zk = (k[p == 0].abs().max().item() if (p == 0).any() else 0.0)
@@ -214,7 +249,7 @@ def compare(k, p, tol, what):
         f"(tol {tol:g}); zeros {zk:.1e}/{zp:.1e} of {scale:.3e}")
     check(finite, f"{what}: non-finite kernel output")
     check(err <= tol * scale, f"{what}: kernel disagrees with plain")
-    check(zk <= ZERO_TOL * scale and zp <= ZERO_TOL * scale,
+    check(zk <= ztol * scale and zp <= ztol * scale,
           f"{what}: zero pattern differs")
     return err
 
@@ -223,11 +258,17 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(moved: int, ops: float) -> dict:
+def bound(moved: int, ops: float, dt: str = "float32", draws: int = 0) -> dict:
     """The least time the card could take: bytes moved (each input read
     once, each output written once) over the memory rate, or operations
-    over the float32 peak, whichever is larger."""
-    tb, to = 1e3 * moved / HBM_BPS, 1e3 * ops / F32_OPS
+    over the peak, whichever is larger.  `ops` are operations of the
+    element type (float32 or float64 peak); `draws` modes of the draw
+    kernels add DRAW_OPS 32-bit operations each and, in float64,
+    DRAW_F64_OPS float64 ones."""
+    tb = 1e3 * moved / HBM_BPS
+    to = 1e3 * (ops / (F32_OPS if dt == "float32" else F64_OPS)
+                + draws * DRAW_OPS / F32_OPS
+                + (draws * DRAW_F64_OPS / F64_OPS if dt == "float64" else 0.0))
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
 
 
@@ -269,21 +310,64 @@ def phase_card():
         say("  ptxas " + line)
     # the FFT kernels keep their elements in registers: no stack frame (a
     # register array indexed at run time lands there), no spills
+    # float32 and float64 instances alike (the entries of X.cu and X_f64.cu)
     for what, has, want in (
             ("axis DFT (zx, y)", lambda k: "axis_" in k and "C2rLoad" not in k, 16),
             ("B1 pack_rows_kernel", lambda k: "pack_rows_kernel" in k, 8),
             ("B2 axis_cols_kernel<C2rLoad>", lambda k: "C2rLoad" in k, 8),
             ("B4 boxmuller_kernel", lambda k: "boxmuller_kernel" in k, 4)):
-        found = [ln for ln in report if has(ln.split(":")[0]) and "spill" in ln]
-        check(len(found) == want, f"ptxas reported {len(found)} {what} kernels, want {want}")
-        for ln in found:
-            check(ln.split(": ", 1)[1].startswith(
-                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
-                f"local memory in a {what} kernel: {ln}")
+        for f64 in (False, True):
+            found = [ln for ln in report if "spill" in ln and " in " not in ln.split(":")[0]
+                     and has(ln.split(":")[0]) and ("_f64]" in ln.split(":")[0]) == f64]
+            tag = f"{what} {'float64' if f64 else 'float32'}"
+            check(len(found) == want,
+                  f"ptxas reported {len(found)} {tag} kernels, want {want}")
+            # a float64 draw kernel (B1, B4) calls the library's sincos, whose
+            # large-argument path (never taken: the angle is at most 2 pi)
+            # ptxas reports as a function of its own, its 40-byte result
+            # buffer as the kernel's stack frame: that frame alone passes
+            slow = {ln.split(" in ", 1)[1].split(":")[0] for ln in report
+                    if ln.startswith("__internal_trig_reduction_slowpathd in ")}
+            for ln in found:
+                clean = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+                ok = [clean] + ([clean.replace("0 bytes stack", "40 bytes stack", 1)]
+                                if f64 and ln.split(":")[0] in slow else [])
+                check(ln.split(": ", 1)[1].startswith(tuple(ok)),
+                      f"local memory in a {tag} kernel: {ln}")
+    global DRAW_F64_OPS
+    DRAW_F64_OPS = _f64_draw_ops()
 
 
-def phase_kernels():
-    """Phases 2 and 3: B1 and B2 against their plain versions."""
+def _f64_draw_ops() -> int:
+    """float64 operations a mode of the float64 draw chain, from the SASS
+    of B5's float64 kernel (one mode a thread, no loop): every instruction
+    of the float64 pipe (DADD, DMUL, DSETP, DMNMX, the conversions and the
+    MUFU seeds of its divisions and roots) counts one, a multiply-add
+    (DFMA) two."""
+    from zeldovich_tpu_torch import kernels
+
+    cuobjdump = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(kernels.LIB)],
+                         capture_output=True, text=True, check=True).stdout
+    ops, inside = 0, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "boxmuller_at_kernelId" in line
+        m = re.search(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", line)
+        if inside and m:
+            op = m.group(1)
+            if op.startswith("DFMA"):
+                ops += 2
+            elif (op.startswith(("DADD", "DMUL", "DSETP", "DMNMX"))
+                  or (op.startswith(("MUFU", "I2F", "F2F")) and "64" in op)):
+                ops += 1
+    check(ops > 0, "no float64 instruction found in B5's float64 kernel")
+    say(f"  float64 draw chain: {ops} float64 operations a mode (B5's SASS)")
+    return ops
+
+
+def phase_kernels(dt="float32"):
+    """Phases 2 and 3: B1 and B2 against their plain versions, in dt."""
     import torch
 
     from zeldovich_tpu_torch.ops.c2r import c2r_y, c2r_y_plain
@@ -293,32 +377,33 @@ def phase_kernels():
 
     errs = {}
     for ppd, plt in ((128, True), (512, False)):
-        m = model_for(ppd, plt)
+        m = model_for(ppd, plt, dt=dt)
         cfg, tables, pk, coefs = m.cfg, m.tables, m.pk_eff, m.plt_coefs
-        tag = f"{ppd}^3 {'PLT' if plt else 'plain'}"
+        tag = f"{ppd}^3 {'PLT' if plt else 'plain'} {TAG[dt]}"
+        b1_tol, b2_tol = tol_for(dt, B1_TOL), tol_for(dt, B2_TOL)
         say(f"== phase 2: B1 vs plain, {tag}")
         k = counted("halfspace_pack_zx",
                     lambda: halfspace_pack_zx(cfg, tables, pk, coefs))
         p = halfspace_pack_zx_plain(cfg, tables, pk, coefs)
         check(k.shape == p.shape, f"B1 shape {k.shape} != {p.shape}")
-        errs[("b1", ppd)] = compare(k, p, B1_TOL, f"B1 {tag} {tuple(k.shape)}")
+        errs[("b1", ppd)] = compare(k, p, b1_tol, f"B1 {tag} {tuple(k.shape)}")
         del p
         say(f"== phase 3: B2 vs plain, {tag}")
         xp = c2r_y_plain(k, ppd)
         xk = counted("c2r_y", lambda: c2r_y(k, ppd))
-        errs[("b2", ppd)] = compare(xk, xp, B2_TOL, f"B2 {tag} {tuple(xk.shape)}")
+        errs[("b2", ppd)] = compare(xk, xp, b2_tol, f"B2 {tag} {tuple(xk.shape)}")
         del xk
         xk = counted("c2r_y", lambda: c2r_y(k, ppd, out=k))
         check(xk.data_ptr() == k.data_ptr(), "B2 in place returned another buffer")
-        compare(xk, xp, B2_TOL, f"B2 {tag} in place")
+        compare(xk, xp, b2_tol, f"B2 {tag} in place")
         del k, xk, xp, m
         torch.cuda.empty_cache()
-    small_b1()
-    small_b2()
+    small_b1(dt)
+    small_b2(dt)
     return errs
 
 
-def small_b1():
+def small_b1(dt="float32"):
     """Phase 2's small cases: B1 on a few generated planes at every n."""
     import torch
 
@@ -332,63 +417,75 @@ def small_b1():
         r = min(half, 8, max(2, (1 << 24) // (n * n)))
         spans = [(0, r)] + ([(half - r, half)] if r < half else [])
         for name, plt, extra in B1_CONFIGS:
-            m = model_for(n, plt, **extra)
+            m = model_for(n, plt, dt=dt, **extra)
             for y0, y1 in spans:
-                pk = pk_effective(m.cfg, m.tables, torch.float32, (y0, y1))
-                coefs = (plt_coef_fields(m.cfg, m.tables, torch.float32, (y0, y1))
+                pk = pk_effective(m.cfg, m.tables, m.dtype, (y0, y1))
+                coefs = (plt_coef_fields(m.cfg, m.tables, m.dtype, (y0, y1))
                          if plt else None)
                 a = (m.cfg, m.tables, pk, coefs, y0)
                 k = counted("halfspace_pack_zx", lambda: halfspace_pack_zx(*a))
                 p = halfspace_pack_zx_plain(*a)
                 check(k.shape == p.shape, f"B1 shape {k.shape} != {p.shape}")
-                compare(k, p, B1_TOL, f"B1 n={n} {name} planes [{y0}, {y1})")
+                compare(k, p, tol_for(dt, B1_TOL),
+                        f"B1 {TAG[dt]} n={n} {name} planes [{y0}, {y1})")
                 del k, p, pk, coefs, a
             del m
             torch.cuda.empty_cache()
 
 
-def small_b2():
+def small_b2(dt="float32"):
     """Phase 3's small cases: B2 on (2, 2, 2, ky, 3, 20) at every n, with
     and without the Nyquist row, out of place, into a given buffer and
-    in place."""
+    in place; float64 also on (2, 2, 2, ky, 3, 7), an odd Bz * X."""
     import torch
 
     from zeldovich_tpu_torch.ops.c2r import c2r_y, c2r_y_plain
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    dtype, tol = getattr(torch, dt), tol_for(dt, B2_TOL)
     for n in SMALL_N:
+        if dt == "float64":
+            spm = torch.randn((2, 2, 2, n // 2, 3, 7), device="cuda", generator=gen,
+                              dtype=dtype)
+            compare(counted("c2r_y", lambda: c2r_y(spm, n)), c2r_y_plain(spm, n), tol,
+                    f"B2 f64 n={n} on an odd Bz * X")
         for nyq in (True, False):
-            spm = torch.randn((2, 2, 2, n // 2 + nyq, 3, 20), device="cuda", generator=gen)
+            spm = torch.randn((2, 2, 2, n // 2 + nyq, 3, 20), device="cuda", generator=gen,
+                              dtype=dtype)
             p = c2r_y_plain(spm, n)
-            tag = f"B2 n={n} {'with' if nyq else 'without'} the Nyquist row"
-            compare(counted("c2r_y", lambda: c2r_y(spm, n)), p, B2_TOL, tag)
+            tag = f"B2 {TAG[dt]} n={n} {'with' if nyq else 'without'} the Nyquist row"
+            compare(counted("c2r_y", lambda: c2r_y(spm, n)), p, tol, tag)
             if nyq:
-                out = torch.empty(p.shape, device="cuda")
+                out = torch.empty(p.shape, device="cuda", dtype=dtype)
                 check(counted("c2r_y", lambda: c2r_y(spm, n, out=out)) is out,
                       "B2 into out returned another tensor")
-                compare(out, p, B2_TOL, f"{tag} into out")
+                compare(out, p, tol, f"{tag} into out")
             else:
                 g = spm.clone()
                 x = counted("c2r_y", lambda: c2r_y(g, n, out=g))
                 check(x.data_ptr() == g.data_ptr(), "B2 in place returned another buffer")
-                compare(x, p, B2_TOL, f"{tag} in place")
+                compare(x, p, tol, f"{tag} in place")
             del spm, p
 
 
 def _b4_bound(tables, pk, live=None):
     return bound(3 * nbytes(pk) + nbytes(live, tables.planes64, tables.mzx64,
-                                         tables.czx64), DRAW_OPS * pk.numel())
+                                         tables.czx64), 0, _dt_of(pk), draws=pk.numel())
+
+
+def _dt_of(t) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 def _b4_compare(k, p, what):
-    err = 0.0
+    err, tol = 0.0, tol_for(_dt_of(p[0]), B4_TOL)
     for j, part in enumerate(("re", "im")):
         _same_zeros(k[j], p[j], f"{what} D_{part}")
-        err = max(err, compare(k[j], p[j], B4_TOL, f"{what} D_{part} {tuple(k[j].shape)}"))
+        err = max(err, compare(k[j], p[j], tol, f"{what} D_{part} {tuple(k[j].shape)}"))
     return err
 
 
-def small_b4():
+def small_b4(dt="float32"):
     """B4 on a few generated planes at every n: one plane, a full y tile
     plus a ragged end (or all but one plane where the half space is no
     deeper than a tile), at both ends of the half space, with and without
@@ -409,16 +506,16 @@ def small_b4():
     for n in SMALL_N:
         half = n // 2
         r = min(tile + 3, half - 1)
-        m = model_for(n, False)
+        m = model_for(n, False, dt=dt)
         for rows, ky0, with_live in ((1, 0, False), (r, 0, True), (r, half - r, False)):
-            pk = pk_effective(m.cfg, m.tables, torch.float32, (ky0, ky0 + rows))
-            live = ((torch.rand(pk.shape, device="cuda", generator=gen) > 0.2).float()
+            pk = pk_effective(m.cfg, m.tables, m.dtype, (ky0, ky0 + rows))
+            live = ((torch.rand(pk.shape, device="cuda", generator=gen) > 0.2).to(m.dtype)
                     if with_live else None)
             for fixed in (False, True):
                 a = (m.tables, pk, fixed, live, ky0)
                 k = counted("halfspace_boxmuller", lambda: halfspace_boxmuller(*a))
                 _b4_compare(k, halfspace_boxmuller_plain(*a),
-                            f"B4 n={n} planes [{ky0}, {ky0 + rows}) fixed_power={fixed}"
+                            f"B4 {TAG[dt]} n={n} planes [{ky0}, {ky0 + rows}) fixed_power={fixed}"
                             + (" live" if with_live else ""))
                 del k, a
             del pk, live
@@ -426,26 +523,27 @@ def small_b4():
         torch.cuda.empty_cache()
 
 
-def phase_b4():
-    """Phase 4's B4 part; returns its error and times at 512^3 and the
-    1024^3 readings."""
+def phase_b4(dt="float32"):
+    """Phase 4's B4 part in dt; returns its error and times at 512^3 and
+    the 1024^3 readings."""
     import torch
 
     from zeldovich_tpu_torch.ops.boxmuller import (
         halfspace_boxmuller, halfspace_boxmuller_plain,
     )
 
-    say("== phase 4: B4 vs plain, 512^3 f32")
-    m = model_for(512, False)
+    f = TAG[dt]
+    say(f"== phase 4: B4 vs plain, 512^3 {f}")
+    m = model_for(512, False, dt=dt)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    live = (torch.rand(m.pk_eff.shape, device="cuda", generator=gen) > 0.2).float()
+    live = (torch.rand(m.pk_eff.shape, device="cuda", generator=gen) > 0.2).to(m.dtype)
     err = 0.0
     for fixed in (False, True):
         for mask in (None, live):
             a = (m.tables, m.pk_eff, fixed, mask)
             k = counted("halfspace_boxmuller", lambda: halfspace_boxmuller(*a))
             e = _b4_compare(k, halfspace_boxmuller_plain(*a),
-                            f"B4 fixed_power={fixed}" + ("" if mask is None else " live"))
+                            f"B4 {f} fixed_power={fixed}" + ("" if mask is None else " live"))
             if not fixed and mask is None:
                 err = e
             del k
@@ -454,14 +552,14 @@ def phase_b4():
     t = _turns(lambda: halfspace_boxmuller(*a), lambda: halfspace_boxmuller_plain(*a))
     b = _b4_bound(m.tables, m.pk_eff)
     fixed_ms = _time(lambda: halfspace_boxmuller(m.tables, m.pk_eff, True))
-    say(f"  B4 512^3 f32: kernel {t[0]:.3f} ms (fixed power {fixed_ms:.3f} ms), plain "
+    say(f"  B4 512^3 {f}: kernel {t[0]:.3f} ms (fixed power {fixed_ms:.3f} ms), plain "
         f"{t[1]:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
         f"{100 * b['bound_ms'] / t[0]:.1f}% of it")
     del m, a
     torch.cuda.empty_cache()
 
-    say("== phase 4: B4 at 1024^3 f32, the first and last 4 planes vs plain")
-    m = model_for(1024, False)
+    say(f"== phase 4: B4 at 1024^3 {f}, the first and last 4 planes vs plain")
+    m = model_for(1024, False, dt=dt)
     more = {}
     for fixed in (False, True):
         k = counted("halfspace_boxmuller",
@@ -470,7 +568,7 @@ def phase_b4():
             span = slice(ky0, ky0 + 4)
             p = halfspace_boxmuller_plain(m.tables, m.pk_eff[span], fixed, None, ky0)
             _b4_compare(tuple(d[span] for d in k), p,
-                        f"B4 1024^3 planes [{ky0}, {ky0 + 4}) fixed_power={fixed}")
+                        f"B4 {f} 1024^3 planes [{ky0}, {ky0 + 4}) fixed_power={fixed}")
         check(all(bool(torch.isfinite(d).all()) for d in k), "B4 1024^3: non-finite D")
         del k, p
         ms = sorted(_time(lambda: halfspace_boxmuller(m.tables, m.pk_eff, fixed))
@@ -478,64 +576,70 @@ def phase_b4():
         more["ms_1024_fixed" if fixed else "ms_1024"] = ms
     b1024 = _b4_bound(m.tables, m.pk_eff)
     more["bound_ms_1024"] = b1024["bound_ms"]
-    say(f"  B4 1024^3 f32: kernel {more['ms_1024']:.3f} ms (fixed power "
+    say(f"  B4 1024^3 {f}: kernel {more['ms_1024']:.3f} ms (fixed power "
         f"{more['ms_1024_fixed']:.3f} ms); bound {b1024['bound_ms']:.3f} ms "
         f"({b1024['bound_by']}), {100 * b1024['bound_ms'] / more['ms_1024']:.1f}% of it")
     del m
     torch.cuda.empty_cache()
-    say("== phase 4: B4 small cases at every n")
-    small_b4()
+    say(f"== phase 4: B4 {f} small cases at every n")
+    small_b4(dt)
     return err, (*t, None, b), {"ms_fixed": fixed_ms, **more}
 
 
-def phase_fullgrid_kernels():
-    """Phase 4: B4, zx and y against their plain versions; returns the
-    errors, the kernel/plain ms at 512^3 and B4's other readings."""
+def phase_fullgrid_kernels(dt="float32"):
+    """Phase 4: B4, zx and y against their plain versions, in dt; returns
+    the errors, the kernel/plain ms at 512^3 and B4's other readings."""
     import torch
 
     from zeldovich_tpu_torch.ops.fft import y_dft, y_dft_plain, zx_dft, zx_dft_plain
 
     errs, times = {}, {}
-    errs["b4"], times["b4"], b4_more = phase_b4()
+    errs["b4"], times["b4"], b4_more = phase_b4(dt)
+    f, dtype, tol = TAG[dt], getattr(torch, dt), tol_for(dt, DFT_TOL)
 
     from zeldovich_tpu_torch.ops.synth import twiddles
 
     gen = torch.Generator(device="cuda").manual_seed(2024)
 
     def placed(shape, off):
-        """Random data of `shape`, starting `off` floats into a buffer."""
-        buf = torch.randn(math.prod(shape) + off, device="cuda", generator=gen)
+        """Random data of `shape`, starting `off` elements into a buffer."""
+        buf = torch.randn(math.prod(shape) + off, device="cuda", generator=gen,
+                          dtype=dtype)
         return buf[off:].view(shape)
 
+    # float64: one element off a 16-byte boundary, and odd Bz * X
+    small = list(SMALL) if dt == "float32" else (
+        [(k, s, min(off, 1)) for k, s, off in SMALL] + list(SMALL_F64))
     cases = ([("zx", s, 0) for s in ZX_SHAPES] + [("y", s, 0) for s in Y_SHAPES]
-             + list(SMALL))
+             + small)
     fns = {"zx": (zx_dft, zx_dft_plain, (-2, -1)), "y": (y_dft, y_dft_plain, (-3,))}
     for name, shape, off in cases:
         fn, plain, dims = fns[name]
-        say(f"== phase 4: {name}_dft vs plain, {shape}" + (f", {off} floats off" if off else ""))
+        say(f"== phase 4: {name}_dft {f} vs plain, {shape}"
+            + (f", {off} elements off" if off else ""))
         x = placed(shape, off)
         out = torch.empty_like(x)
         for sign in (+1, -1):
             p = plain(x, sign)
             k = counted(f"{name}_dft", lambda: fn(x, sign, out=out))
-            err = compare(k, p, DFT_TOL, f"{name}_dft sign {sign:+d}")
+            err = compare(k, p, tol, f"{name}_dft sign {sign:+d}")
             inplace = placed(shape, off)
             inplace.copy_(x)
             check(counted(f"{name}_dft", lambda: fn(inplace, sign, inplace)) is inplace,
                   "in-place call returned another tensor")
-            err = max(err, compare(inplace, p, DFT_TOL, f"{name}_dft sign {sign:+d} in place"))
+            err = max(err, compare(inplace, p, tol, f"{name}_dft sign {sign:+d} in place"))
             if shape == (2, 2, 512, 512, 512):
                 errs[name] = max(errs.get(name, 0.0), err)
             del k, p, inplace
-        if (name, shape, off) in SMALL:
+        if (name, shape, off) in small:
             continue
         c = torch.complex(x[:, 0], x[:, 1])  # the library call's operand, once
         n = shape[-1] if name == "zx" else shape[2]
         t = _turns(lambda: fn(x, +1, out=out), lambda: plain(x, +1, out=out),
                    library=lambda: torch.fft.ifftn(c, dim=dims, norm="forward"))
-        b = bound(2 * nbytes(x) + nbytes(twiddles(n, x.device)),
-                  fft_ops(x.numel() // 2, n) * len(dims))
-        say(f"  {name}_dft {shape} f32: kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms, "
+        b = bound(2 * nbytes(x) + nbytes(twiddles(n, x.device, +1, dtype)),
+                  fft_ops(x.numel() // 2, n) * len(dims), dt)
+        say(f"  {name}_dft {shape} {f}: kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms, "
             f"library {t[2]:.3f} ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
             f"{100 * b['bound_ms'] / t[0]:.1f}% of it")
         if shape == (2, 2, 512, 512, 512):
@@ -591,7 +695,7 @@ def _peak(step, ppd, what):
     return ms, peak
 
 
-def phase_timing():
+def phase_timing(dt="float32"):
     import torch
 
     from zeldovich_tpu_torch.ops.c2r import c2r_y, c2r_y_plain
@@ -599,19 +703,20 @@ def phase_timing():
         halfspace_pack_zx, halfspace_pack_zx_plain,
     )
 
-    say(f"== phase 5: half-spectrum forward step timing on {smi()}")
+    f, dtype = TAG[dt], getattr(torch, dt)
+    say(f"== phase 5: half-spectrum forward step timing, {f}, on {smi()}")
     per_kernel = {}
     for ppd, plt in ((512, False), (512, True)):
-        m = model_for(ppd, plt)
+        m = model_for(ppd, plt, dt=dt)
         a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
         g = halfspace_pack_zx(*a)
-        buf = torch.empty((g.shape[0], 2, ppd, ppd, ppd), device="cuda")
+        buf = torch.empty((g.shape[0], 2, ppd, ppd, ppd), device="cuda", dtype=dtype)
         b1 = _turns(lambda: halfspace_pack_zx(*a), lambda: halfspace_pack_zx_plain(*a))
         b2 = _turns(lambda: c2r_y(g, ppd, out=buf), lambda: c2r_y_plain(g, ppd))
         del buf
         step = _turns(lambda: m.xspace_half_pair(),
                       lambda: c2r_y_plain(halfspace_pack_zx_plain(*a), ppd))
-        tag = f"{ppd}^3 {'PLT' if plt else 'plain'} f32"
+        tag = f"{ppd}^3 {'PLT' if plt else 'plain'} {f}"
         for name, (k, p) in (("B1", b1), ("B2", b2), ("step", step)):
             say(f"  {tag} {name}: kernel {k:.3f} ms, plain {p:.3f} ms"
                 + (f"; {ppd**3 / k / 1e3:.1f} vs {ppd**3 / p / 1e3:.1f} Mpart/s"
@@ -619,8 +724,8 @@ def phase_timing():
         if not plt:
             tb, half = m.tables, ppd // 2
             b1b = bound(nbytes(m.pk_eff, tb.planes64, tb.mzx64, tb.czx64, g),
-                        DRAW_OPS * half * ppd * ppd + 2 * fft_ops(g.numel() // 2, ppd))
-            b2b = bound(2 * nbytes(g), fft_ops(g.numel() // 2, ppd))
+                        2 * fft_ops(g.numel() // 2, ppd), dt, draws=half * ppd * ppd)
+            b2b = bound(2 * nbytes(g), fft_ops(g.numel() // 2, ppd), dt)
             say(f"  {tag} B1 bound {b1b['bound_ms']:.3f} ms ({b1b['bound_by']}), "
                 f"{100 * b1b['bound_ms'] / b1[0]:.1f}% of it; three-pass design floor "
                 f"{1e3 * 3 * nbytes(g) / HBM_BPS:.3f} ms")
@@ -635,16 +740,16 @@ def phase_timing():
         del g, m, a
         torch.cuda.empty_cache()
 
-    m = model_for(1024, False)
+    m = model_for(1024, False, dt=dt)
     a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
     b1 = sorted(_time(lambda: halfspace_pack_zx(*a), reps=2) for _ in range(3))[1]
     g = halfspace_pack_zx(*a)
-    buf = torch.empty((g.shape[0], 2, 1024, 1024, 1024), device="cuda")
+    buf = torch.empty((g.shape[0], 2, 1024, 1024, 1024), device="cuda", dtype=dtype)
     b2 = sorted(_time(lambda: c2r_y(g, 1024, out=buf), reps=2) for _ in range(3))[1]
-    say(f"  1024^3 plain f32: B1 {b1:.3f} ms, B2 {b2:.3f} ms (kernel route)")
+    say(f"  1024^3 plain {f}: B1 {b1:.3f} ms, B2 {b2:.3f} ms (kernel route)")
     del g, buf
     torch.cuda.empty_cache()
-    _peak(lambda: m.xspace_half_pair(), 1024, "1024^3 plain f32 step, B2 in place")
+    _peak(lambda: m.xspace_half_pair(), 1024, f"1024^3 plain {f} step, B2 in place")
     del m, a
     torch.cuda.empty_cache()
     return per_kernel
@@ -672,26 +777,29 @@ def _profile(step, what):
         say(f"    {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<5d} {key[:90]}")
 
 
-def phase_fullgrid_timing():
+def phase_fullgrid_timing(dt="float32"):
+    """Phase 6 in dt; float64 times the f_NL configuration alone."""
     import torch
 
-    say(f"== phase 6: full-grid forward step timing on {smi()}")
-    for tag, plt, extra in (("f_NL", False, FNL), ("f_NL PLT", True, FNL),
-                            ("CornerModes k_cutoff=2", False, CORNER)):
-        m = model_for(512, plt, **extra)
+    f = TAG[dt]
+    say(f"== phase 6: full-grid forward step timing, {f}, on {smi()}")
+    configs = (("f_NL", False, FNL), ("f_NL PLT", True, FNL),
+               ("CornerModes k_cutoff=2", False, CORNER))
+    for tag, plt, extra in configs[:1 if dt == "float64" else None]:
+        m = model_for(512, plt, dt=dt, **extra)
         _ = (m.pk_eff, m.plt_coefs)
         k, p = _turns(lambda: m.xspace_pair(), lambda: m.xspace_pair(plain=True))
-        say(f"  512^3 {tag} f32 step: kernel {k:.3f} ms, plain {p:.3f} ms; "
+        say(f"  512^3 {tag} {f} step: kernel {k:.3f} ms, plain {p:.3f} ms; "
             f"{512**3 / k / 1e3:.1f} vs {512**3 / p / 1e3:.1f} Mpart/s")
         if tag == "f_NL":
-            _profile(lambda: m.xspace_pair(), "512^3 f_NL kernel route")
-            _peak(lambda: m.xspace_pair(), 512, "512^3 f_NL f32 step")
+            _profile(lambda: m.xspace_pair(), f"512^3 f_NL {f} kernel route")
+            _peak(lambda: m.xspace_pair(), 512, f"512^3 f_NL {f} step")
         del m
         torch.cuda.empty_cache()
 
-    m = model_for(1024, False, **FNL)
+    m = model_for(1024, False, dt=dt, **FNL)
     _ = m.pk_eff
-    _peak(lambda: m.xspace_pair(), 1024, "1024^3 f_NL f32 step")
+    _peak(lambda: m.xspace_pair(), 1024, f"1024^3 f_NL {f} step")
     del m
     torch.cuda.empty_cache()
 
@@ -703,7 +811,7 @@ def _same_zeros(k, p, what):
     check(torch.equal(k == 0, p == 0), f"{what}: zero pattern differs")
 
 
-def phase_b5():
+def phase_b5(dt="float32"):
     """Phase 7: B5 against its plain version on the slab synthesis' chunks."""
     import torch
 
@@ -712,21 +820,22 @@ def phase_b5():
         draw_operands, slab_chunk, slab_modes, synthesize_pair,
     )
 
-    say("== phase 7: B5 vs plain, 512^3 y-slabs of 64 rows, f32")
-    m = model_for(512, False)
+    f, dtype, tol = TAG[dt], getattr(torch, dt), tol_for(dt, B5_TOL)
+    say(f"== phase 7: B5 vs plain, 512^3 y-slabs of 64 rows, {f}")
+    m = model_for(512, False, dt=dt)
     check(slab_chunk(128, 512) == 64, "the slab chunk is not 64 rows at 512^3")
     err, times = 0.0, {}
     for y0, where in ((0, "generated half"), (224, "across ppd/2"),
                       (448, "mirror half")):
         ops = draw_operands(slab_modes(y0, y0 + 64, 512, "cuda"), m.cfg,
-                            m.tables, torch.float32)
+                            m.tables, dtype)
         for fixed in (False, True):
             k = counted("boxmuller", lambda: boxmuller(m.tables, *ops, fixed))
             p = boxmuller_plain(m.tables, *ops, fixed)
             for j, part in enumerate(("re", "im")):
-                what = f"B5 y0={y0} ({where}) fixed_power={fixed} D_{part}"
+                what = f"B5 {f} y0={y0} ({where}) fixed_power={fixed} D_{part}"
                 _same_zeros(k[j], p[j], what)
-                e = compare(k[j], p[j], B5_TOL, f"{what} {tuple(k[j].shape)}")
+                e = compare(k[j], p[j], tol, f"{what} {tuple(k[j].shape)}")
                 err = max(err, e)
             del k, p
         times[y0] = _turns(lambda: boxmuller(m.tables, *ops, False),
@@ -734,26 +843,26 @@ def phase_b5():
         tb = m.tables
         times[y0] = (*times[y0], None, bound(
             nbytes(*ops, tb.planes64, tb.mzx64, tb.czx64) + 2 * nbytes(ops[3]),
-            DRAW_OPS * ops[0].numel()))
-        say(f"  B5 y0={y0} ({where}) 16.8M modes f32: kernel "
+            0, dt, draws=ops[0].numel()))
+        say(f"  B5 y0={y0} ({where}) 16.8M modes {f}: kernel "
             f"{times[y0][0]:.3f} ms, plain {times[y0][1]:.3f} ms")
         del ops
     del m
     torch.cuda.empty_cache()
-    mf = model_for(512, False, **FNL)
+    mf = model_for(512, False, dt=dt, **FNL)
     for y0 in (224, 448):
-        a = (y0, 64, mf.cfg, mf.tables, torch.float32)
+        a = (y0, 64, mf.cfg, mf.tables, dtype)
         k = counted("boxmuller", lambda: synthesize_pair(*a, gen_phi=True))
         p = synthesize_pair(*a, gen_phi=True, plain=True)
         _same_zeros(k, p, f"gen_phi slab y0={y0}")
-        compare(k, p, B5_TOL, f"f_NL gen_phi slab y0={y0} {tuple(k.shape)}")
+        compare(k, p, tol, f"f_NL gen_phi slab {f} y0={y0} {tuple(k.shape)}")
         del k, p
     del mf
     torch.cuda.empty_cache()
     return err, times[0]
 
 
-def phase_b3():
+def phase_b3(dt="float32"):
     """Phase 8: B3 against its plain version; the separate-kernel half
     route against the fused one."""
     import torch
@@ -761,33 +870,34 @@ def phase_b3():
     from zeldovich_tpu_torch.ops.modes_real import pack_half_raw
     from zeldovich_tpu_torch.ops.synth import halfspace_pack
 
-    err, ms = 0.0, None
+    err, ms, dtype = 0.0, None, getattr(torch, dt)
     for ppd, plt in ((512, False), (128, True)):
-        tag = f"{ppd}^3 {'PLT' if plt else 'plain'} f32"
+        tag = f"{ppd}^3 {'PLT' if plt else 'plain'} {TAG[dt]}"
         say(f"== phase 8: B3 vs plain, {tag}")
-        m = model_for(ppd, plt)
+        m = model_for(ppd, plt, dt=dt)
         a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
         k = counted("halfspace_pack", lambda: halfspace_pack(*a))
-        p = pack_half_raw(m.cfg, m.tables, torch.float32, m.pk_eff, m.plt_coefs)
+        p = pack_half_raw(m.cfg, m.tables, dtype, m.pk_eff, m.plt_coefs)
         check(k.shape == p.shape, f"B3 shape {k.shape} != {p.shape}")
         _same_zeros(k, p, f"B3 {tag}")
-        e = compare(k, p, B3_TOL, f"B3 {tag} {tuple(k.shape)}")
+        e = compare(k, p, tol_for(dt, B3_TOL), f"B3 {tag} {tuple(k.shape)}")
         del k, p
         if ppd != 512:
             continue
         err = e
         ms = _turns(lambda: halfspace_pack(*a),
-                    lambda: pack_half_raw(m.cfg, m.tables, torch.float32,
+                    lambda: pack_half_raw(m.cfg, m.tables, dtype,
                                           m.pk_eff, m.plt_coefs))
         tb, half = m.tables, ppd // 2
         ms = (*ms, None, bound(
             nbytes(m.pk_eff, tb.planes64, tb.mzx64, tb.czx64)
-            + m.cfg.narray * 4 * (half + 1) * ppd * ppd * 4,
-            DRAW_OPS * half * ppd * ppd))
+            + m.cfg.narray * 4 * (half + 1) * ppd * ppd * m.pk_eff.element_size(),
+            0, dt, draws=half * ppd * ppd))
         say(f"  B3 {tag}: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms")
         sep = m.xspace_half_pair(m.kspace_half_pair())
         fused = m.xspace_half_pair()
-        compare(sep, fused, ROUTE_TOL, f"separate (B3, zx, B2) vs fused (B1, B2) {tag}")
+        compare(sep, fused, tol_for(dt, ROUTE_TOL),
+                f"separate (B3, zx, B2) vs fused (B1, B2) {tag}")
         del sep, fused
         t = _turns(lambda: m.xspace_half_pair(m.kspace_half_pair()),
                    lambda: m.xspace_half_pair())
@@ -999,18 +1109,23 @@ def _run_cli(par: Path, *flags) -> dict | None:
     return qa
 
 
-def _ic_files(d: Path, ppd: int, cpd: int):
-    """The ic_* files: one per slab file index z*cpd//ppd, 32 B a particle."""
+def _ic_files(d: Path, ppd: int, cpd: int, fmt="RVZel"):
+    """The ic_* files: one per slab file index z*cpd//ppd, a particle the
+    bytes of its format (RVZel floats, RVdoubleZel doubles)."""
+    from zeldovich_tpu_torch.models.pipeline import output_dtype
+
     files = sorted(d.glob("ic_*"))
     total = sum(f.stat().st_size for f in files)
     nfiles = len({z * cpd // ppd for z in range(ppd)})
+    want = ppd**3 * output_dtype(fmt).itemsize
     say(f"  {len(files)} ic_* files, {total} bytes")
     check(len(files) == nfiles, f"wrote {len(files)} files, want {nfiles}")
-    check(total == ppd**3 * 32, f"wrote {total} bytes, want {ppd**3 * 32}")
+    check(total == want, f"wrote {total} bytes, want {want}")
     return files
 
 
-def _against_plain(tmp: Path, name: str, par: Path, x_plain):
+def _against_plain(tmp: Path, name: str, par: Path, x_plain, fmt="RVZel",
+                   tol=PARTICLE_TOL):
     """Every particle of run `name` against x_plain through the same writer."""
     from zeldovich_tpu_torch.models.pipeline import OutputWriter, Parameters
     from zeldovich_tpu_torch.utils.streamio import stream_xspace
@@ -1022,18 +1137,20 @@ def _against_plain(tmp: Path, name: str, par: Path, x_plain):
     writer = OutputWriter(param)
     with contextlib.redirect_stderr(io.StringIO()):
         stream_xspace(x_plain, writer)
-    _same_particles(tmp / name, tmp / f"{name}_plain", 128, "plain")
+    _same_particles(tmp / name, tmp / f"{name}_plain", 128, "plain", fmt, tol)
 
 
-def _same_particles(got_dir: Path, want_dir: Path, ppd: int, what: str):
+def _same_particles(got_dir: Path, want_dir: Path, ppd: int, what: str, fmt="RVZel",
+                    tol=PARTICLE_TOL):
     """Every ic_* particle of got_dir against want_dir's: indices exact,
-    displacements and velocities to PARTICLE_TOL of the scale."""
+    displacements and velocities to tol of the scale (PARTICLE_TOL;
+    float64 runs, their doubles to F64_TOL)."""
     import numpy as np
 
     from zeldovich_tpu_torch.models.pipeline import output_dtype
 
-    dtype = output_dtype("RVZel")
-    files = _ic_files(got_dir, ppd, cpd_for(ppd))
+    dtype = output_dtype(fmt)
+    files = _ic_files(got_dir, ppd, cpd_for(ppd), fmt)
     worst = {"displ": 0.0, "vel": 0.0}
     for f in files:
         # the writer's RVZel record layout, as read_particles reads it
@@ -1046,8 +1163,8 @@ def _same_particles(got_dir: Path, want_dir: Path, ppd: int, what: str):
             err = float(np.abs(got[c] - want[c]).max())
             worst[c] = max(worst[c], err / scale)
     say(f"  worst |run - {what}| / max: displ {worst['displ']:.3e}, "
-        f"vel {worst['vel']:.3e} (tol {PARTICLE_TOL:g})")
-    check(max(worst.values()) <= PARTICLE_TOL, f"{got_dir.name}: particles differ")
+        f"vel {worst['vel']:.3e} (tol {tol:g})")
+    check(max(worst.values()) <= tol, f"{got_dir.name}: particles differ")
 
 
 HALF = ("halfspace_pack_zx", "c2r_y")
@@ -1058,25 +1175,42 @@ SEPARATE = ("halfspace_pack", "zx_dft", "c2r_y")
 OOC_FLAGS = ["--out-of-core"]
 PART = [["--part", "1"], ["--part", "2"]]
 
+DOUBLES = dict(ICFormat='"RVdoubleZel"')
+F32, F64 = "float32", "float64"
+
 #: name, ppd, PLT, extra keys, CLI flags of each invocation, the kernels the
-#: run must launch (and no other), the run its particles are held against
+#: run must launch (and no other), the run its particles are held against,
+#: the element type.  A float32 run passes --dtype float32; a float64 run
+#: passes no --dtype (the CLI's default) and writes doubles.
 RUNS = (
-    ("example", 128, True, {}, [[]], HALF, "plain"),
-    ("fnl_plt128", 128, True, FNL, [[]], FULL, "plain"),
-    ("plt128", 128, True, {}, [[]], HALF, None),
-    ("plain256", 256, False, {}, [[]], HALF, None),
-    ("plt256", 256, True, {}, [[]], HALF, None),
-    ("fnl512", 512, False, FNL, [[]], FULL, None),
-    ("corner256", 256, False, CORNER, [[]], FULL, None),
-    ("v1_128", 128, False, V1, [[]], TRANSFORMS, None),  # v1 draws on the host
-    ("ooc_plain256", 256, False, {}, [OOC_FLAGS], OOC, "plain256"),
+    ("example", 128, True, {}, [[]], HALF, "plain", F32),
+    ("fnl_plt128", 128, True, FNL, [[]], FULL, "plain", F32),
+    ("plt128", 128, True, {}, [[]], HALF, None, F32),
+    ("plain256", 256, False, {}, [[]], HALF, None, F32),
+    ("plt256", 256, True, {}, [[]], HALF, None, F32),
+    ("fnl512", 512, False, FNL, [[]], FULL, None, F32),
+    ("corner256", 256, False, CORNER, [[]], FULL, None, F32),
+    ("v1_128", 128, False, V1, [[]], TRANSFORMS, None, F32),  # v1 draws on the host
+    ("ooc_plain256", 256, False, {}, [OOC_FLAGS], OOC, "plain256", F32),
     ("ooc_fnl_plt128", 128, True, FNL, [OOC_FLAGS + ["--backing", "disk"]], OOC,
-     "fnl_plt128"),
-    ("ooc_fnl512", 512, False, FNL, [OOC_FLAGS], OOC, None),
-    ("part_plt128", 128, True, {}, PART, FULL, "plt128"),
-    ("part_ooc_plt128", 128, True, {}, [OOC_FLAGS + f for f in PART], OOC, "plt128"),
+     "fnl_plt128", F32),
+    ("ooc_fnl512", 512, False, FNL, [OOC_FLAGS], OOC, None, F32),
+    ("part_plt128", 128, True, {}, PART, FULL, "plt128", F32),
+    ("part_ooc_plt128", 128, True, {}, [OOC_FLAGS + f for f in PART], OOC, "plt128", F32),
+    ("f64_example", 128, True, {}, [[]], HALF, None, F64),  # example.par as it stands
+    ("f64_plt128", 128, True, DOUBLES, [[]], HALF, "plain", F64),
+    ("f64_fnl_plt128", 128, True, dict(FNL, **DOUBLES), [[]], FULL, "plain", F64),
+    ("f64_df64_plt128", 128, True, DOUBLES, [["--dtype", "df64"]], HALF, "f64_plt128", F64),
+    ("f64_plain256", 256, False, DOUBLES, [[]], HALF, None, F64),
+    ("f64_v1_128", 128, False, dict(V1, **DOUBLES), [[]], TRANSFORMS, None, F64),
+    ("f64_ooc_plain256", 256, False, DOUBLES, [OOC_FLAGS], OOC, "f64_plain256", F64),
+    ("f64_part_plt128", 128, True, DOUBLES, PART, FULL, "f64_plt128", F64),
+    # part 2 alone, on a complex128 (narray, Y, Z, X) checkpoint as the JAX
+    # CLI writes by default (made here from the model's k-space grid)
+    ("f64_part2_complex128", 128, True, DOUBLES, [["--part", "2"]], TRANSFORMS,
+     "f64_plt128", F64),
 )
-KEEP = {"fnl_plt128", "plt128", "plain256"}  # held against later
+KEEP = {"fnl_plt128", "plt128", "plain256", "f64_plt128", "f64_plain256"}  # held against later
 
 
 def _check_launches(name, launches, want):
@@ -1089,7 +1223,7 @@ def _check_launches(name, launches, want):
 
 def _write_par(tmp: Path, name: str, ppd: int, plt: bool, extra) -> Path:
     par = tmp / f"{name}.par"
-    if name == "example":
+    if name in ("example", "f64_example"):
         text = EXAMPLE.read_text()
         text = re.sub(r"InitialConditionsDirectory.*",
                       f'InitialConditionsDirectory = "{tmp / name}"', text)
@@ -1101,23 +1235,26 @@ def _write_par(tmp: Path, name: str, ppd: int, plt: bool, extra) -> Path:
     return par
 
 
-def _half_route_api(tmp: Path, total: dict):
-    """The separate-kernel half route through the model API at 256^3,
-    written through the writer; particles against the CLI's plain256."""
+def _half_route_api(tmp: Path, total: dict, dt="float32"):
+    """The separate-kernel half route through the model API at 256^3 in
+    dt, written through the writer; particles against the CLI's plain256
+    (float64: f64_plain256)."""
     import torch
 
     from zeldovich_tpu_torch import kernels
     from zeldovich_tpu_torch.models.pipeline import OutputWriter, Parameters, Zeldovich
     from zeldovich_tpu_torch.utils.streamio import stream_xspace
 
-    name = "half_api256"
-    say(f"-- {name}: 256^3 plain, kspace_half_pair -> xspace_half_pair(spm)")
-    param = Parameters.from_file(_write_par(tmp, name, 256, False, {}))
+    name, fused = (("half_api256", "plain256") if dt == F32
+                   else ("f64_half_api256", "f64_plain256"))
+    say(f"-- {name}: 256^3 plain {TAG[dt]}, kspace_half_pair -> xspace_half_pair(spm)")
+    param = Parameters.from_file(_write_par(tmp, name, 256, False,
+                                            {} if dt == F32 else DOUBLES))
     (tmp / name).mkdir()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         kernels.reset_launches()
-        m = Zeldovich(param, dtype=torch.float32, device="cuda")
+        m = Zeldovich(param, dtype=getattr(torch, dt), device="cuda")
         x = m.xspace_half_pair(m.kspace_half_pair())
         writer = OutputWriter(param)
         stream_xspace(x, writer)
@@ -1128,9 +1265,23 @@ def _half_route_api(tmp: Path, total: dict):
     _check_launches(name, launches, SEPARATE)
     for k, v in launches.items():
         total[k] += v
-    _same_particles(tmp / name, tmp / "plain256", 256, "plain256 (fused route)")
+    _same_particles(tmp / name, tmp / fused, 256, f"{fused} (fused route)",
+                    "RVZel" if dt == F32 else "RVdoubleZel", tol_for(dt, PARTICLE_TOL))
     del x, m
     shutil.rmtree(tmp / name)
+
+
+def _complex_checkpoint(outdir: Path, ppd: int, plt: bool, extra):
+    """The k-space grid of a float64 run as the complex128
+    (narray, Y, Z, X) checkpoint of the JAX CLI's default, in outdir."""
+    import torch
+
+    from zeldovich_tpu_torch.utils.checkpoint import save_kspace
+
+    k = model_for(ppd, plt, dt=F64, **extra).kspace_pair()
+    outdir.mkdir()
+    save_kspace(torch.complex(k[:, 0], k[:, 1]), outdir / "zeldovich.kspace.ckpt")
+    say(f"  wrote a complex128 {tuple(k[:, 0].shape)} checkpoint")
 
 
 def phase_end_to_end():
@@ -1141,40 +1292,40 @@ def phase_end_to_end():
     say("== phase 10: end to end through zeldovich_tpu_torch.cli.main")
     tmp = Path(tempfile.mkdtemp(prefix="zt_smoke_"))
     try:
-        total = {k: 0 for k in kernels.launches}
-        for name, ppd, plt, extra, calls, want, against in RUNS:
+        total = {dt: {k: 0 for k in kernels.launches} for dt in (F32, F64)}
+        for name, ppd, plt, extra, calls, want, against, dt in RUNS:
             par = _write_par(tmp, name, ppd, plt, extra)
-            say(f"-- {name}: {ppd}^3 {'PLT' if plt else 'plain'} {extra or ''} "
+            say(f"-- {name}: {ppd}^3 {'PLT' if plt else 'plain'} {TAG[dt]} {extra or ''} "
                 f"{' then '.join(' '.join(c) for c in calls if c)}")
+            if name == "f64_part2_complex128":
+                _complex_checkpoint(tmp / name, ppd, plt, extra)
             kernels.reset_launches()
             for flags in calls:
-                _run_cli(par, *flags)
+                _run_cli(par, *flags, *(["--dtype", F32] if dt == F32 else []))
             launches = dict(kernels.launches)
             _check_launches(name, launches, want)
             for k, v in launches.items():
-                total[k] += v
-            _ic_files(tmp / name, ppd, cpd_for(ppd))
+                total[dt][k] += v
+            fmt = extra.get("ICFormat", "RVZel").strip('"')
+            tol = tol_for(dt, PARTICLE_TOL)
+            _ic_files(tmp / name, ppd, cpd_for(ppd), fmt)
             left = [f.name for f in (tmp / name).iterdir()
                     if f.name.startswith("zeldovich.")]
             check(not left, f"{name} left {left} behind")
-            if name == "example":
+            if against == "plain":
                 from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
                 from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx_plain
 
-                m = model_for(128, True)
-                x = c2r_y_plain(halfspace_pack_zx_plain(
-                    m.cfg, m.tables, m.pk_eff, m.plt_coefs), 128)
-                _against_plain(tmp, name, par, x)
-                del x, m
-            elif against == "plain":
-                m = model_for(128, True, **FNL)
-                x = m.xspace_pair(plain=True)
-                _against_plain(tmp, name, par, x)
+                m = model_for(ppd, plt, dt=dt, **extra)
+                x = (c2r_y_plain(halfspace_pack_zx_plain(
+                    m.cfg, m.tables, m.pk_eff, m.plt_coefs), ppd)
+                    if m.half_exact else m.xspace_pair(plain=True))
+                _against_plain(tmp, name, par, x, fmt, tol)
                 del x, m
             elif against is not None:
-                _same_particles(tmp / name, tmp / against, ppd, against)
-            if name == "plain256":
-                _half_route_api(tmp, total)
+                _same_particles(tmp / name, tmp / against, ppd, against, fmt, tol)
+            if name in ("plain256", "f64_plain256"):
+                _half_route_api(tmp, total[dt], dt)
             if name not in KEEP:
                 shutil.rmtree(tmp / name)
             torch.cuda.empty_cache()
@@ -1197,51 +1348,64 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     phase_card()
-    errs = phase_kernels()
-    full_errs, full_ms, b4_more = phase_fullgrid_kernels()
-    per_kernel = phase_timing()
-    phase_fullgrid_timing()
-    b5_err, b5_ms = phase_b5()
-    b3_err, b3_ms = phase_b3()
+    res = {}
+    for dt in (F32, F64):
+        r = res[dt] = {}
+        r["errs"] = phase_kernels(dt)
+        r["full_errs"], r["full_ms"], r["b4_more"] = phase_fullgrid_kernels(dt)
+        r["per_kernel"] = phase_timing(dt)
+        phase_fullgrid_timing(dt)
+        r["b5_err"], r["b5_ms"] = phase_b5(dt)
+        r["b3_err"], r["b3_ms"] = phase_b3(dt)
     phase_outofcore()
     launches = phase_end_to_end()
     card = smi()
 
-    def entry(name, source, replaces, err, ms, **more):
+    def entry(dt, name, source, replaces, err, ms, **more):
         kernel_ms, plain_ms, library_ms, b = ms
-        return {"name": name, "route": "cuda",
-                "source": f"zeldovich_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches[name],
+        stem = source.removesuffix(".cu") + ("_f64.cu" if dt == F64 else ".cu")
+        return {"name": name, "dtype": dt, "route": "cuda",
+                "source": f"zeldovich_tpu_torch/csrc/{stem}",
+                "templates": f"zeldovich_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[dt][name],
                 "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, **b,
                 "library_ms": library_ms, **more}
 
-    summary = {"kernels": [
-        entry("halfspace_pack_zx", "synth.cu", "zeldovich_tpu/ops/pallas_synth.py:946",
-              errs[("b1", 512)], per_kernel["b1"]),
-        entry("c2r_y", "c2r.cu", "zeldovich_tpu/ops/pallas_fft.py:700",
-              errs[("b2", 512)], per_kernel["b2"]),
-        entry("halfspace_boxmuller", "boxmuller.cu",
-              "zeldovich_tpu/ops/pallas_synth.py:546", full_errs["b4"], full_ms["b4"],
-              **b4_more),
-        entry("zx_dft", "fft_axis.cu", "zeldovich_tpu/ops/pallas_fft.py:305",
-              full_errs["zx"], full_ms["zx"],
-              also_replaces="zeldovich_tpu/ops/pallas_fft.py:374"),
-        entry("y_dft", "fft_axis.cu", "zeldovich_tpu/ops/pallas_fft.py:437",
-              full_errs["y"], full_ms["y"]),
-        entry("boxmuller", "boxmuller.cu", "zeldovich_tpu/ops/pallas_synth.py:301",
-              b5_err, b5_ms),
-        entry("halfspace_pack", "synth.cu", "zeldovich_tpu/ops/pallas_synth.py:470",
-              b3_err, b3_ms),
-    ]}
+    def entries(dt):
+        r = res[dt]
+        return [
+            entry(dt, "halfspace_pack_zx", "synth.cu",
+                  "zeldovich_tpu/ops/pallas_synth.py:946",
+                  r["errs"][("b1", 512)], r["per_kernel"]["b1"]),
+            entry(dt, "c2r_y", "c2r.cu", "zeldovich_tpu/ops/pallas_fft.py:700",
+                  r["errs"][("b2", 512)], r["per_kernel"]["b2"]),
+            entry(dt, "halfspace_boxmuller", "boxmuller.cu",
+                  "zeldovich_tpu/ops/pallas_synth.py:546", r["full_errs"]["b4"],
+                  r["full_ms"]["b4"], **r["b4_more"]),
+            entry(dt, "zx_dft", "fft_axis.cu", "zeldovich_tpu/ops/pallas_fft.py:305",
+                  r["full_errs"]["zx"], r["full_ms"]["zx"],
+                  also_replaces="zeldovich_tpu/ops/pallas_fft.py:374"),
+            entry(dt, "y_dft", "fft_axis.cu", "zeldovich_tpu/ops/pallas_fft.py:437",
+                  r["full_errs"]["y"], r["full_ms"]["y"]),
+            entry(dt, "boxmuller", "boxmuller.cu",
+                  "zeldovich_tpu/ops/pallas_synth.py:301", r["b5_err"], r["b5_ms"]),
+            entry(dt, "halfspace_pack", "synth.cu",
+                  "zeldovich_tpu/ops/pallas_synth.py:470", r["b3_err"], r["b3_ms"]),
+        ]
+
+    summary = {"kernels": entries(F32) + entries(F64)}
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s "
-        "(max_abs_err and ms at 512^3 f32: B1/B2 the plain half step (B2 timed "
-        "into a buffer of its own), B4 the "
+        "(every kernel once per element type; max_abs_err and ms at 512^3: "
+        "B1/B2 the plain half step (B2 timed into a buffer of its own), B4 the "
         "plain configuration's half space, zx/y a (2, 2, 512, 512, 512) grid, "
         "B5 the 64-row chunk of the y0 = 0 slab (max_abs_err over three "
         "slabs), B3 the plain configuration's packed half spectrum; library_ms "
-        "torch.fft.irfft for B2, ifftn/ifft for zx/y; bound_ms at "
-        f"{HBM_BPS / 1e12:g} TB/s and {F32_OPS / 1e12:g} TFLOP/s, draw work "
-        f"counted as {DRAW_OPS} operations a mode)")
+        "torch.fft.irfft for B2, ifftn/ifft for zx/y, on complex64 or "
+        f"complex128; bound_ms at {HBM_BPS / 1e12:g} TB/s, {F32_OPS / 1e12:g} "
+        f"TFLOP/s float32 and {F64_OPS / 1e12:g} TFLOP/s float64, draw work "
+        f"counted as {DRAW_OPS} 32-bit operations a mode and, in float64, "
+        f"{DRAW_F64_OPS} float64 ones; launches: the float32 and the float64 "
+        "end-to-end runs apart)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"ok": True, "device": {

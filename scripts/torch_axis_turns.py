@@ -2,12 +2,16 @@
 """Trees of the PyTorch + CUDA port on one GPU, in turns A, B, B, A.
 
     python3 scripts/torch_axis_turns.py A_ROOT B_ROOT [C_ROOT ...] [--out FILE]
+                                        [--dtype float32|float64]
 
 With more than two trees the turns go forward and back: A, B, C, C, B, A.
+One tree given twice (``. .``) is timed alone, as both A and B.
 
 Each turn is a fresh process that imports ``zeldovich_tpu_torch`` from
 its tree's root (building that tree's kernels into its own ``_build/``)
-and measures, float32, CUDA events around several launches:
+and measures, in ``--dtype`` (float32 unless given; float64 needs trees
+whose kernels have the double instances), CUDA events around several
+launches:
 
 * zx_dft and y_dft at the shapes the paths launch (chip_smoke.py's
   ZX_SHAPES and Y_SHAPES), out of place, sign +1, and zx's z pass alone
@@ -85,7 +89,14 @@ def _digest(*tensors) -> str:
     return h.hexdigest()
 
 
-def _draw_kernels(cs, res: dict):
+def _model(cs, dt, n, plt, **extra):
+    """chip_smoke.model_for of the tree in dt (a tree from before the
+    double instances takes no element type: float32)."""
+    kw = {} if dt == "float32" else {"dt": dt}
+    return cs.model_for(n, plt, device="cuda", **kw, **extra)
+
+
+def _draw_kernels(cs, res: dict, dt: str):
     """B4, B3 and B5 of the tree: ms and the digests of their outputs."""
     import torch
 
@@ -95,7 +106,7 @@ def _draw_kernels(cs, res: dict):
 
     res["b4"], res["bits"] = {}, res.get("bits", {})
     for n in (512, 1024):
-        m = cs.model_for(n, False, device="cuda")
+        m = _model(cs, dt, n, False)
         for fixed in (False, True):
             key = f"{n}^3" + (" fixed power" if fixed else "")
             res["b4"][key] = _per_call(
@@ -108,7 +119,7 @@ def _draw_kernels(cs, res: dict):
             res["b3"] = _per_call(lambda: halfspace_pack(*a), 10)
             res["bits"]["B3 512^3"] = _digest(halfspace_pack(*a))
             ops = draw_operands(slab_modes(0, 64, 512, "cuda"), m.cfg, m.tables,
-                                torch.float32)
+                                getattr(torch, dt))
             res["b5"] = _per_call(lambda: boxmuller(m.tables, *ops, False), 10)
             res["bits"]["B5 16.8M modes"] = _digest(*boxmuller(m.tables, *ops, False))
             del a, ops
@@ -116,7 +127,7 @@ def _draw_kernels(cs, res: dict):
         torch.cuda.empty_cache()
 
 
-def worker(root: Path) -> dict:
+def worker(root: Path, dt: str) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
@@ -128,18 +139,18 @@ def worker(root: Path) -> dict:
 
     assert Path(kernels.__file__).resolve().is_relative_to(root.resolve())
     kernels.library()
-    res = {"root": str(root), "zx": {}, "y": {}, "zcols": {}}
+    res = {"root": str(root), "dtype": dt, "zx": {}, "y": {}, "zcols": {}}
     gen = torch.Generator(device="cuda").manual_seed(7)
     for name, fn, shapes in (("zx", zx_dft, ZX_SHAPES), ("y", y_dft, Y_SHAPES),
                              ("zcols", y_dft, ZCOLS_SHAPES)):
         for shape in shapes:
-            x = torch.randn(shape, device="cuda", generator=gen)
+            x = torch.randn(shape, device="cuda", generator=gen, dtype=getattr(torch, dt))
             out = torch.empty_like(x)
             res[name][str(shape)] = _per_call(lambda: fn(x, +1, out=out), 10)
             del x, out
             torch.cuda.empty_cache()
 
-    m = cs.model_for(512, False, device="cuda")
+    m = _model(cs, dt, 512, False)
     a = (m.cfg, m.tables, m.pk_eff, m.plt_coefs)
     res["b1"] = _per_call(lambda: halfspace_pack_zx(*a), 10)
     g = halfspace_pack_zx(*a)
@@ -152,7 +163,7 @@ def worker(root: Path) -> dict:
     del m, a
     torch.cuda.empty_cache()
 
-    m = cs.model_for(512, False, device="cuda", **cs.FNL)
+    m = _model(cs, dt, 512, False, **cs.FNL)
     _ = m.pk_eff
     m.xspace_pair()
     torch.cuda.synchronize()
@@ -166,17 +177,17 @@ def worker(root: Path) -> dict:
     del m
     torch.cuda.empty_cache()
 
-    m = cs.model_for(512, False, device="cuda", **cs.CORNER)
+    m = _model(cs, dt, 512, False, **cs.CORNER)
     _ = m.pk_eff
     res["corner_device_ms"] = sum(_by_kernel(lambda: m.xspace_pair()).values())
     del m
     torch.cuda.empty_cache()
-    m = cs.model_for(1024, False, device="cuda", **cs.FNL)
+    m = _model(cs, dt, 1024, False, **cs.FNL)
     _ = m.pk_eff
     res["fnl1024_device_ms"] = sum(_by_kernel(lambda: m.xspace_pair()).values())
     del m
     torch.cuda.empty_cache()
-    _draw_kernels(cs, res)
+    _draw_kernels(cs, res, dt)
     return res
 
 
@@ -185,9 +196,10 @@ def main() -> int:
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--worker", default=None)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     args = ap.parse_args()
     if args.worker:
-        print("TURN " + json.dumps(worker(Path(args.worker))), flush=True)
+        print("TURN " + json.dumps(worker(Path(args.worker), args.dtype)), flush=True)
         return 0
     roots = [Path(r).resolve() for r in args.roots]
     if len(roots) < 2:
@@ -199,7 +211,8 @@ def main() -> int:
     turns = []
     order = list(zip(labels, roots))
     for label, root in order + order[::-1]:
-        proc = subprocess.run([sys.executable, __file__, "--worker", str(root)],
+        proc = subprocess.run([sys.executable, __file__, "--worker", str(root),
+                               "--dtype", args.dtype],
                               capture_output=True, text=True, cwd=root)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -210,7 +223,8 @@ def main() -> int:
         print(f"{label} {json.dumps(res)}", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps({"card": card.stdout.strip(), "turns": turns}))
+        Path(args.out).write_text(json.dumps(
+            {"card": card.stdout.strip(), "dtype": args.dtype, "turns": turns}))
 
     def med(label, get):
         return statistics.median(get(r) for r in turns if r["tree"] == label)
@@ -227,7 +241,7 @@ def main() -> int:
              ("512^3 plain half step device", lambda r: sum(r["half_kernels"].values())),
              ("512^3 f_NL step wall", lambda r: r["fnl_step_ms"]),
              ("512^3 f_NL step device", lambda r: r["fnl_device_ms"])]
-    print(f"{'ms (median of 2 turns)':40s}" + "".join(f"{x:>10s}" for x in labels))
+    print(f"{args.dtype + ' ms (median of 2 turns)':40s}" + "".join(f"{x:>10s}" for x in labels))
     for what, get in rows:
         print(f"{what:40s}" + "".join(f"{med(x, get):10.3f}" for x in labels))
     same = True

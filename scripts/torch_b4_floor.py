@@ -94,7 +94,7 @@ __global__ void __launch_bounds__(B4_THREADS, B4_MIN_BLOCKS) copy_kernel(
     for (int u = 0; u < B4_U; ++u) {
       const u128 st = ((u128)sp[2 * (j + u) + 1] << 64) | (u128)sp[2 * (j + u)];
       if (COPY == 0) {
-        rt[u] = zt::mode_uniforms(m * st + c);
+        rt[u] = zt::mode_uniforms<float>(m * st + c);
       } else {
         const float bit = (float)(int)((fold ^ (u64)st ^ (u64)(st >> 64)) & 1);
         rt[u] = make_float2(bit, -bit);
@@ -113,7 +113,7 @@ __global__ void __launch_bounds__(B4_THREADS, B4_MIN_BLOCKS) copy_kernel(
     const u128 st = ((u128)sp[2 * j + 1] << 64) | (u128)sp[2 * j];
     float2 D;
     if (COPY == 0) {
-      D = zt::gaussian_mode(m * st + c, pv, false, 1.0f);
+      D = zt::gaussian_mode<float>(m * st + c, pv, false, 1.0f);
     } else {
       const float bit = (float)(int)((fold ^ (u64)st ^ (u64)(st >> 64)) & 1);
       D = make_float2(pv + bit, pv - bit);
@@ -183,7 +183,7 @@ def build(variants) -> dict:
     for v in variants:
         vdir = work / "_".join(map(str, v))
         vdir.mkdir(parents=True)
-        for name in ("boxmuller.cu", "pcg.cuh"):
+        for name in ("boxmuller.cu", "pcg.cuh", "real.cuh"):
             text = (kernels.CSRC / name).read_text()
             (vdir / name).write_text(text if v == default else _variant_text(text, v))
         src = vdir / "b4_floor.cu"
@@ -202,7 +202,7 @@ def build(variants) -> dict:
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                name = re.search(r"(boxmuller_kernelILb\dELb\d|copy_kernelILi\d|"
+                name = re.search(r"(boxmuller_kernelIfLb\dELb\d|copy_kernelILi\d|"
                                  r"boxmuller_at_kernel)", m.group(1))
                 name = name.group(1) if name else None
             elif name and ("Used" in line or "spill" in line) and "at_kernel" not in name:
@@ -257,7 +257,7 @@ def sass_counts(lib: Path) -> dict:
         return {"error": proc.stderr[-300:]}
     out = {}
     for chunk in re.split(r"Function : ", proc.stdout)[1:]:
-        name = re.search(r"boxmuller_kernelILb\dELb\d", chunk.split("\n", 1)[0])
+        name = re.search(r"boxmuller_kernelIfLb\dELb\d", chunk.split("\n", 1)[0])
         if not name:
             continue
         ins = [(int(a, 16), t) for a, t in
@@ -355,7 +355,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     result["sass"] = sass_counts(kernels.LIB)
     print("SASS " + json.dumps(result["sass"]), flush=True)
-    loop = result["sass"].get("boxmuller_kernelILb0ELb0", {}).get("largest_loop")
+    loop = result["sass"].get("boxmuller_kernelIfLb0ELb0", {}).get("largest_loop")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for row in result["issue"]:
         if loop:

@@ -20,6 +20,9 @@ step): float64 agrees to 1 ulp of each output's scale (0.58 measured at
 32^3), float32 to 2 ulp (1.74 measured).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -129,6 +132,36 @@ def test_b4_model_reads_the_kernels_tile_constants():
     assert b4m.steps(63, 1) == ([list(range(j, j + 4)) for j in range(0, 28, 4)]
                                 + [[28], [29], [30]])
     assert b4m.steps(1, 0) == [[0]]
+
+
+def test_b4_double_instances_share_the_tile_and_halve_the_blocks():
+    """The float64 instances of B4 walk the same tiles (one schedule, which
+    the model runs in pk's dtype); their register budget is two blocks a
+    SM, 128 registers a thread, where float32's four leave 64."""
+    blocks = {name: int(re.search(rf"constexpr int {name} = (\d+);", b4m.SOURCE).group(1))
+              for name in ("B4_MIN_BLOCKS", "B4_MIN_BLOCKS_F64")}
+    assert blocks == {"B4_MIN_BLOCKS": 4, "B4_MIN_BLOCKS_F64": 2}
+    assert "sizeof(F) == 8 ? B4_MIN_BLOCKS_F64 : B4_MIN_BLOCKS" in b4m.SOURCE
+    assert 65536 // (b4m.THREADS * blocks["B4_MIN_BLOCKS_F64"]) == 128
+    assert 65536 // (b4m.THREADS * blocks["B4_MIN_BLOCKS"]) == 64
+    twin = (Path(b4m.__file__).parent.parent / "zeldovich_tpu_torch" / "csrc"
+            / "boxmuller_f64.cu").read_text()
+    assert "#define ZT_F64" in twin and '#include "boxmuller.cu"' in twin
+
+
+@pytest.mark.parametrize("ppd", [16, 64])
+@pytest.mark.parametrize("fixed_power", [False, True], ids=["drawn", "fixed"])
+def test_b4_schedule_model_float64_equals_plain(ppd, fixed_power):
+    """The schedule in float64 (the exact uniforms, library log, cos and
+    sin) equals the plain version bit for bit, every mode written once."""
+    _, port = _tables(ppd)
+    half = ppd // 2 - 1
+    pk, live = _fields((half, ppd, ppd), 3 * ppd, dtype="float64")
+    args = (port, torch.from_numpy(pk), fixed_power, torch.from_numpy(live))
+    re_, im, writes = b4m.b4_model(*args)
+    assert re_.dtype == torch.float64 and bool((writes == 1).all())
+    want = halfspace_boxmuller_plain(*args)
+    assert torch.equal(re_, want[0]) and torch.equal(im, want[1])
 
 
 @pytest.mark.parametrize("ppd", [16, 32, 64, 128])

@@ -80,7 +80,7 @@ def test_in_core_part1_part2(tmp_path, case, capsys):
     over = CASES[case]
     par = _write_par(tmp_path / "p.par", tmp_path / "run", **over)
     one = _write_par(tmp_path / "one.par", tmp_path / "one", **over)
-    flags = ["--device", "cpu"]
+    flags = ["--device", "cpu", "--dtype", "float32"]
     assert main([str(par), *flags, "--part", "1"]) == 0
     ckpt = tmp_path / "run" / "zeldovich.kspace.ckpt"
     assert f"Checkpoint written to {ckpt}" in capsys.readouterr().err
@@ -104,7 +104,7 @@ def test_out_of_core_part1_part2(tmp_path, case, capsys):
     over = CASES[case]
     par = _write_par(tmp_path / "p.par", tmp_path / "run", **over)
     one = _write_par(tmp_path / "one.par", tmp_path / "one", **over)
-    flags = ["--device", "cpu", "--out-of-core", "--slab-mb", "1"]
+    flags = ["--device", "cpu", "--out-of-core", "--slab-mb", "1", "--dtype", "float32"]
     assert main([str(par), *flags, "--part", "1"]) == 0
     mm = tmp_path / "run" / "zeldovich.kspace.mm"
     err = capsys.readouterr().err
@@ -112,15 +112,15 @@ def test_out_of_core_part1_part2(tmp_path, case, capsys):
     assert mm.stat().st_size == (2 * 2 * 16**3) * 4
     assert main([str(par), *flags, "--part", "2"]) == 0
     assert not mm.exists()
-    assert main([str(one), "--device", "cpu"]) == 0  # in core, one shot
+    assert main([str(one), "--device", "cpu", "--dtype", "float32"]) == 0  # in core, one shot
     _same_particles(tmp_path / "run", tmp_path / "one")
 
 
 def test_part2_with_another_dtype_exits_1(tmp_path, capsys):
     par = _write_par(tmp_path / "p.par", tmp_path / "run")
-    assert main([str(par), "--device", "cpu", "--part", "1"]) == 0
+    assert main([str(par), "--device", "cpu", "--part", "1"]) == 0  # float64
     assert main([str(par), "--device", "cpu", "--part", "2",
-                 "--dtype", "float64"]) == 1
+                 "--dtype", "float32"]) == 1
     assert "same .par and --dtype" in capsys.readouterr().err
 
 
@@ -195,16 +195,43 @@ def test_part2_refuses_a_complex_checkpoint_it_cannot_take(tmp_path, capsys, kin
                     "other shape": ((2, 8, 16, 16), np.complex64),
                     "half grid": ((2, 2, 2, 9, 16, 16), np.float32)}[kind]
     jax_save_kspace(np.zeros(shape, dtype), tmp_path / "run" / "zeldovich.kspace.ckpt")
-    assert main([str(par), "--device", "cpu", "--part", "2"]) == 1
+    assert main([str(par), "--device", "cpu", "--dtype", "float32", "--part", "2"]) == 1
     err = capsys.readouterr().err
     assert "same .par and --dtype" in err and str(shape) in err
     assert not list((tmp_path / "run").glob("ic_*"))
 
 
-def test_part2_float64_on_the_card_names_a6(tmp_path, capsys, monkeypatch):
-    """A complex128 checkpoint (the JAX CLI's default) needs --dtype
-    float64, which the card does not run yet: exit 1 naming ROADMAP A6."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+@pytest.mark.parametrize("case", list(CASES))
+def test_part2_takes_a_complex128_checkpoint_with_no_dtype(tmp_path, case, capsys):
+    """The JAX CLI's default checkpoint, the complex128 (narray, Y, Z, X)
+    grid of a float64 ``Zeldovich.kspace()``, resumes under the port's
+    ``--part 2`` with no --dtype (float64 is the default of both), and the
+    ``ic_*`` doubles equal a one-shot run's to 1e-12 of the scale."""
+    over = dict(CASES[case], ICFormat="RVdoubleZel")
+    par = _write_par(tmp_path / "p.par", tmp_path / "run", **over)
+    one = _write_par(tmp_path / "one.par", tmp_path / "one", **over)
+    ckpt = tmp_path / "run" / "zeldovich.kspace.ckpt"
+    k = JZeldovich(Parameters.from_file(par)).kspace()  # the JAX default: float64
+    assert k.dtype == jnp.complex128
+    (tmp_path / "run").mkdir()
+    jax_save_kspace(k, ckpt)
+    assert main([str(par), "--device", "cpu", "--part", "2"]) == 0
+    err = capsys.readouterr().err
+    assert "Loading k-space checkpoint" in err and "A6" not in err
+    assert not ckpt.exists()
+    assert main([str(one), "--device", "cpu"]) == 0
+    _same_particles_tol(tmp_path / "run", tmp_path / "one", 1e-12)
+
+
+def test_part1_checkpoint_is_float64_by_default(tmp_path):
+    """--part 1 with no --dtype writes the float64 pair grid, equal to the
+    JAX package's float64 ``kspace_pair()`` to 1e-12; out of core the
+    float64 stage."""
     par = _write_par(tmp_path / "p.par", tmp_path / "run")
-    assert main([str(par), "--part", "2", "--dtype", "float64"]) == 1
-    assert "ROADMAP A6" in capsys.readouterr().err
+    assert main([str(par), "--device", "cpu", "--part", "1"]) == 0
+    got = load_kspace(tmp_path / "run" / "zeldovich.kspace.ckpt")
+    want = np.asarray(JZeldovich(Parameters.from_file(par)).kspace_pair())
+    assert got.dtype == want.dtype == np.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    assert main([str(par), "--device", "cpu", "--out-of-core", "--part", "1"]) == 0
+    assert (tmp_path / "run" / "zeldovich.kspace.mm").stat().st_size == 2 * 2 * 16**3 * 8

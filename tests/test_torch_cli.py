@@ -122,18 +122,20 @@ def test_f_nl_runs_on_the_cpu(tmp_path, capsys):
 ])
 def test_memory_plan_counts_the_phi_grid(tmp_path, capsys, over, narrays):
     """The memory-plan line counts narray + 1 arrays under f_NL, as the
-    JAX CLI does: the phi grid lives beside the k-space arrays."""
+    JAX CLI does: the phi grid lives beside the k-space arrays.  In
+    float64 (16 bytes a complex element) unless --dtype float32 asks."""
     par = _write_par(tmp_path / "p.par", tmp_path / "ic", **over)
-    assert cli.main([str(par), "--device", "cpu"]) == 0
-    gib = (16 / 1024.0) ** 3 * narrays * 8
-    assert (f"Device-resident k-space state: {gib:5.3f} GiB "
-            f"({narrays} complex arrays, float32)") in capsys.readouterr().err
+    for flags, itemsize, name in (([], 16, "float64"), (["--dtype", "float32"], 8, "float32")):
+        assert cli.main([str(par), "--device", "cpu", *flags]) == 0
+        gib = (16 / 1024.0) ** 3 * narrays * itemsize
+        assert (f"Device-resident k-space state: {gib:5.3f} GiB "
+                f"({narrays} complex arrays, {name})") in capsys.readouterr().err
 
 
 @pytest.mark.parametrize(
     "flags,item",
     [(["--sharded"], "A10"), (["--distributed"], "A10"),
-     (["--profile", "d"], "A11"), (["--dtype", "df64"], "A6"),
+     (["--profile", "d"], "A11"),
      (["--coordinator", "localhost:1234"], "A10"), (["--num-processes", "2"], "A10"),
      (["--process-id", "0"], "A10")],
 )
@@ -155,24 +157,80 @@ def test_pair_flag_changes_no_output_byte(tmp_path, capsys):
     assert len(runs["none"]) == 8 and runs["pair"] == runs["none"]
 
 
+F32 = ["--dtype", "float32"]
+
+
 @pytest.mark.parametrize("fmt,flags,warned", [
-    ("RVdoubleZel", [], True), ("RVdoubleZel", ["--dtype", "float32"], False),
+    ("RVdoubleZel", [], False), ("RVdoubleZel", F32, True),
     ("RVdoubleZel", ["--dtype", "float64"], False), ("RVZel", [], False),
-    ("Zeldovich", [], True), ("ZelSimple", [], False),
+    ("RVZel", F32, False), ("Zeldovich", [], False), ("Zeldovich", F32, True),
+    ("ZelSimple", F32, False), ("RVdoubleZel", ["--dtype", "df64"], False),
 ])
 def test_float32_default_is_announced_for_a_double_format(tmp_path, capsys, fmt,
                                                           flags, warned):
-    """The port computes in float32 unless told otherwise, where the JAX
-    CLI defaults to float64: a .par that asks for a double ic_* format
-    without --dtype gets one stderr line saying so, and no other run does."""
+    """The default is float64, as the JAX CLI's, and says nothing.  Only a
+    run that asks for --dtype float32 and a double ic_* format gets one
+    stderr line saying that its doubles carry float32 rounding; no message
+    names ROADMAP A6 any more."""
     par = _write_par(tmp_path / "p.par", tmp_path / "ic", ICFormat=fmt,
                      ZD_qPLT=int(fmt.startswith("RV")))  # PLT needs velocities
     assert cli.main([str(par), "--device", "cpu", *flags]) == 0
     err = capsys.readouterr().err
     line = [ln for ln in err.splitlines() if "float32 rounding" in ln]
     assert len(line) == (1 if warned else 0)
+    assert "A6" not in err
     if warned:
-        assert "--dtype float64 --device cpu" in line[0] and "A6" in line[0]
+        assert "--dtype float32" in line[0] and "--dtype float64" in line[0]
+
+
+@pytest.mark.parametrize("fmt", ["RVdoubleZel", "RVZel"])
+@pytest.mark.parametrize("flow", ["in core", "out of core"])
+def test_no_dtype_computes_in_float64(tmp_path, capsys, fmt, flow):
+    """With no --dtype the run computes in float64, as python -m
+    zeldovich_tpu does: its ic_* bytes equal a --dtype float64 run's (the
+    doubles of RVdoubleZel, and the floats of RVZel, which are rounded
+    from float64 values), and differ from a --dtype float32 run's."""
+    ooc = ["--out-of-core", "--slab-mb", "1"] if flow == "out of core" else []
+    runs = {}
+    for name, flags in (("none", []), ("f64", ["--dtype", "float64"]), ("f32", F32)):
+        par = _write_par(tmp_path / f"{name}.par", tmp_path / name, ICFormat=fmt)
+        assert cli.main([str(par), "--device", "cpu", *ooc, *flags]) == 0
+        runs[name] = {f.name: f.read_bytes() for f in (tmp_path / name).glob("ic_*")}
+    err = capsys.readouterr().err
+    assert err.count("complex arrays, float64") == 2 and "complex arrays, float32" in err
+    assert len(runs["none"]) == 8 and runs["none"] == runs["f64"]
+    assert runs["none"] != runs["f32"]
+
+
+def test_df64_runs_as_native_float64(tmp_path, capsys):
+    """--dtype df64 (in the JAX package float32 draws with emulated
+    float64-grade transforms) exits 0, says on one stderr line that it runs
+    as native float64, and gives a --dtype float64 run's bytes."""
+    runs = {}
+    for name in ("df64", "float64"):
+        par = _write_par(tmp_path / f"{name}.par", tmp_path / name, ICFormat="RVdoubleZel")
+        assert cli.main([str(par), "--device", "cpu", "--dtype", name]) == 0
+        runs[name] = {f.name: f.read_bytes() for f in (tmp_path / name).glob("ic_*")}
+        err = capsys.readouterr().err
+        said = [ln for ln in err.splitlines() if "df64" in ln]
+        assert len(said) == (1 if name == "df64" else 0)
+        assert not said or "native float64" in said[0]
+        assert "not ported" not in err and "complex arrays, float64" in err
+    assert len(runs["df64"]) == 8 and runs["df64"] == runs["float64"]
+
+
+@pytest.mark.parametrize("flags", [[], ["--dtype", "float64"], ["--dtype", "df64"],
+                                   ["--out-of-core"], ["--part", "1"], ["--part", "2"]])
+def test_float64_on_the_card_is_not_refused(tmp_path, capsys, monkeypatch, flags):
+    """No float64 flow exits early for the card any more: with a card
+    reported, the CLI goes on to build its model on it (and fails there in
+    this test, which has none), and no message names ROADMAP A6."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic")
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda|nvidia"):
+        cli.main([str(par), *flags])
+    err = capsys.readouterr().err
+    assert "A6" not in err and "Generating ICs for ppd = 16" in err
 
 
 @pytest.mark.parametrize("flags", [

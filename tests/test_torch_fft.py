@@ -32,7 +32,7 @@ from zeldovich_tpu.ops.pallas_fft import y_tiled_pallas, zx_folded_pallas, zx_ti
 from zeldovich_tpu_torch.ops import mmfft
 from zeldovich_tpu_torch.ops.fft import y_dft, zx_dft
 from zeldovich_tpu_torch.ops.synth import twiddles
-from torch_fft_model import CSRC, PLAN, stockham
+from torch_fft_model import CSRC, PLAN, Tiles, exchange_wavefronts, stockham
 
 torch.set_num_threads(1)
 
@@ -110,6 +110,21 @@ def test_twiddle_sign():
         twiddles(16, torch.device("cpu"), 0)
 
 
+@pytest.mark.parametrize("n", list(PLAN))
+def test_twiddles_take_the_kernels_dtype(n):
+    """float32 by default; float64 for the double instances, computed in
+    float64 and not rounded to float; no other type."""
+    cpu = torch.device("cpu")
+    want = np.exp(2j * np.pi * np.arange(n // 2) / n)
+    w32, w64 = twiddles(n, cpu), twiddles(n, cpu, +1, torch.float64)
+    assert w32.dtype == torch.float32 and w64.dtype == torch.float64
+    assert w32.shape == w64.shape == (n // 2, 2)
+    np.testing.assert_array_equal(w64.numpy(), np.stack([want.real, want.imag], -1))
+    np.testing.assert_array_equal(w32.numpy(), w64.numpy().astype(np.float32))
+    with pytest.raises(TypeError, match="float32 and float64"):
+        twiddles(n, cpu, +1, torch.float16)
+
+
 def test_no_plain_route_off_the_cpu():
     """Only a CPU tensor takes the plain versions: another device goes to
     the kernel path, which raises where it has no kernel."""
@@ -144,23 +159,27 @@ def test_plan_is_the_headers():
 
 @pytest.mark.parametrize("n", list(PLAN))
 @pytest.mark.parametrize("sign", [+1, -1])
-def test_schedule_matches_torch_fft_and_y_tiled_pallas(n, sign):
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_schedule_matches_torch_fft_and_y_tiled_pallas(n, sign, dtype):
     """Along y (the cols layout, as y_dft and zx's z pass run it) against
-    torch.fft and y_tiled_pallas; along x (the rows layout) against
-    torch.fft."""
-    zslab = _pair((1, 2, n, 1, 8), np.float32, n - sign)
+    torch.fft and (float32) y_tiled_pallas; along x (the rows layout)
+    against torch.fft.  The float64 instances' schedule against torch.fft
+    in complex128, to 1e-12."""
+    zslab = _pair((1, 2, n, 1, 8), dtype, n - sign)
     got = _model_axis(zslab, sign, -3, "cols")
+    assert got.dtype == np.dtype(dtype)
     c = torch.complex(torch.from_numpy(zslab[:, 0]), torch.from_numpy(zslab[:, 1]))
     want = (torch.fft.ifft(c, dim=-3, norm="forward") if sign > 0
             else torch.fft.fft(c, dim=-3))
-    _close(got, torch.stack([want.real, want.imag], 1).numpy(), "float32")
-    jwant = np.asarray(y_tiled_pallas(jnp.asarray(zslab), sign, tile=8, interpret=True))
-    _close(got, jwant, "float32")
-    rows = _pair((3, 2, n), np.float32, n + sign)
+    _close(got, torch.stack([want.real, want.imag], 1).numpy(), dtype)
+    if dtype == "float32":
+        jwant = np.asarray(y_tiled_pallas(jnp.asarray(zslab), sign, tile=8, interpret=True))
+        _close(got, jwant, "float32")
+    rows = _pair((3, 2, n), dtype, n + sign)
     got = _model_axis(rows, sign, -1, "rows")
     c = torch.complex(torch.from_numpy(rows[:, 0]), torch.from_numpy(rows[:, 1]))
     want = torch.fft.ifft(c, norm="forward") if sign > 0 else torch.fft.fft(c)
-    _close(got, torch.stack([want.real, want.imag], 1).numpy(), "float32")
+    _close(got, torch.stack([want.real, want.imag], 1).numpy(), dtype)
 
 
 @pytest.mark.parametrize("n", list(PLAN))
@@ -172,3 +191,91 @@ def test_schedule_zx_matches_zx_pallas(n, sign):
     got = _model_axis(_model_axis(spm, sign, -2, "cols"), sign, -1, "rows")
     fn = zx_folded_pallas if n <= 512 else zx_tiled_pallas
     _close(got, np.asarray(fn(jnp.asarray(spm), sign, interpret=True)), "float32")
+
+
+@pytest.mark.parametrize("n", list(PLAN))
+@pytest.mark.parametrize("sign", [+1, -1])
+def test_schedule_zx_float64_matches_torch_fft(n, sign):
+    """The double instances' zx (z in the cols layout, then x in the rows
+    layout) against torch.fft in complex128, to 1e-12."""
+    spm = _pair((1, 2, 1, n, n), np.float64, 5 * n + sign)
+    got = _model_axis(_model_axis(spm, sign, -2, "cols"), sign, -1, "rows")
+    c = torch.complex(torch.from_numpy(spm[:, 0]), torch.from_numpy(spm[:, 1]))
+    want = (torch.fft.ifft2(c, norm="forward") if sign > 0 else torch.fft.fft2(c))
+    _close(got, torch.stack([want.real, want.imag], 1).numpy(), "float64")
+
+
+# -- the tiles of either element type (fft_pass.cuh, fft_axis.cu, synth.cu) ----
+
+def test_tile_model_is_the_headers():
+    """Tiles repeats these expressions of the sources."""
+    pass_h = (CSRC / "fft_pass.cuh").read_text()
+    for text in ("return sizeof(F) == 8 && reg::elems(n) == 16 ? 512 : 1024;",
+                 "return sizeof(F) == 4 && n >= 64 && reg::elems(n) == 8 ? 2 : 1;",
+                 "constexpr int lo = 32 / (int)sizeof(F), hi = 128 / (int)sizeof(F);",
+                 "2 * extent<true>(n) * tx * (int)sizeof(F) > 227 * 1024",
+                 "block_threads<F>(n) / (sizeof(F) == 8 && threads < 32 ? 32 : threads)",
+                 "cols_c<F>(n) == 1 ? min_blocks<F>(n, cols_threads<F>(n)) : 1"):
+        assert text in pass_h, text
+    assert "return 4096 / n < n ? 4096 / n : n;" in (CSRC / "fft_axis.cu").read_text()
+    synth = (CSRC / "synth.cu").read_text()
+    for text in ("sizeof(F) == 8 ? (reg::elems(n) == 16 ? 128 : 256) : n == 2048 ? 128 : 256",
+                 "sizeof(F) == 8 ? 2 : n == 2048 ? 3 : reg::elems(n) == 8 ? 3 : 2"):
+        assert text in synth, text
+    for stem in ("fft_axis", "c2r", "synth", "boxmuller"):  # the double twins
+        twin = (CSRC / f"{stem}_f64.cu").read_text()
+        assert "#define ZT_F64" in twin and f'#include "{stem}.cu"' in twin
+
+
+def test_float32_tiles_are_unchanged():
+    """The float tiles that PERF.md's float32 times were measured with."""
+    got = {n: (Tiles(n, 4).cols_tx, Tiles(n, 4).cols_c, Tiles(n, 4).cols_threads)
+           for n in PLAN}
+    assert got == {16: (32, 1, 32), 32: (32, 1, 128), 64: (32, 2, 128),
+                   128: (32, 1, 256), 256: (32, 1, 512), 512: (32, 2, 1024),
+                   1024: (16, 1, 1024), 2048: (8, 1, 1024)}
+    assert [Tiles(n, 4).b1_threads for n in PLAN] == [256] * 7 + [128]
+
+
+@pytest.mark.parametrize("n", list(PLAN))
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["float32", "float64"])
+def test_tiles_fit_the_sm(n, itemsize):
+    """Every kernel's block, at every n and for either element type: runs
+    of 32 to 128 bytes along a column tile, at most 1024 threads, shared
+    memory of all the blocks a SM is budgeted for within 227 KB, and a
+    register budget that holds the thread's elements with room for the
+    butterflies' temporaries (no spill: chip_smoke.py checks ptxas)."""
+    t = Tiles(n, itemsize)
+    assert 32 <= t.cols_tx * itemsize <= 128
+    assert t.cols_tx % t.cols_c == 0
+    if itemsize == 8:
+        assert t.cols_c == 1  # a double thread carries one column
+        assert t.cols_tx == {512: 16, 1024: 8, 2048: 4}.get(n, 16)
+    for threads, blocks, smem, c in (
+            (t.cols_threads, t.cols_min_blocks, t.cols_smem, t.cols_c),
+            (t.rows_threads, t.rows_min_blocks, t.rows_smem, 1),
+            (t.b1_rows * t.T, t.b1_min_blocks, t.b1_smem, 1)):
+        assert 1 <= threads <= 1024 and blocks >= 1
+        assert smem <= Tiles.SMEM
+        # what the budgeted blocks take together fits one SM
+        assert min(blocks, 32) * smem <= Tiles.SMEM
+        regs = t.registers(threads, blocks)
+        assert regs >= 64
+        # the elements and as much again for twiddles, temporaries and
+        # addresses, up to the 255 a thread can have
+        assert regs >= min(255, 2 * t.data_registers(c) - (32 if c == 2 else 0))
+
+
+@pytest.mark.parametrize("n", list(PLAN))
+@pytest.mark.parametrize("layout", ["cols", "rows"])
+def test_double_exchanges_add_no_bank_conflicts(n, layout):
+    """The padding of the exchanges (one element after 2^S indices) was
+    chosen for 4-byte words.  A count of the shared-memory wavefronts of
+    every store and load of every warp says it serves 8-byte words as
+    well: the column layout is free of conflicts at every n for both
+    types (a double thread's one column is float's pair of columns), the
+    row layout up to n = 256, and for n >= 512 its worst instruction is
+    two-way in float and in double alike."""
+    f32, f64 = (exchange_wavefronts(n, size, layout) for size in (4, 8))
+    assert f64 == f32
+    assert f32 == (2.0 if layout == "rows" and n >= 512 else 1.0)

@@ -27,7 +27,9 @@ from zeldovich_tpu.ops import modes_real as jmr
 from zeldovich_tpu.ops.pallas_synth import halfspace_pack_pallas
 from zeldovich_tpu.utils.params import Parameters
 from zeldovich_tpu_torch.models.pipeline import Zeldovich
+from zeldovich_tpu_torch.ops.mmfft import ifft3_half_pair
 from zeldovich_tpu_torch.ops.modes import SynthConfig, tables_from_jax
+from zeldovich_tpu_torch.ops.modes_real import fix_ky0_packed
 from zeldovich_tpu_torch.ops.synth import halfspace_pack
 
 torch.set_num_threads(1)
@@ -121,3 +123,26 @@ def test_kspace_half_pair_refuses_non_hermitian_configurations():
     m = Zeldovich(_param(16, ZD_f_NL=10.0, ZD_n_s=0.96, Omega_M=0.3), device="cpu")
     with pytest.raises(NotImplementedError, match="full-grid"):
         m.kspace_half_pair()
+
+
+@pytest.mark.parametrize("case", ["plain", "plt"])
+def test_carried_tables_of_a_float64_model(case):
+    """tables_from_jax carries a float64 JAX model's state without
+    narrowing it: pk_n2, the eigenmodes, pk_eff and the PLT planes stay
+    float64, and B3's plain version and the separate-kernel route on them
+    give the JAX package's float64 answer to 1e-12."""
+    jm = JZeldovich(_param(16, **CASES[case]), dtype=jnp.float64)
+    cfg, tables, pk, coefs = _carry(jm)
+    assert tables.pk_n2.dtype == pk.dtype == torch.float64
+    assert tables.eig is None or tables.eig.dtype == torch.float64
+    assert coefs is None or coefs.dtype == torch.float64
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(jm.pk_eff))
+    spm = fix_ky0_packed(halfspace_pack(cfg, tables, pk, coefs))
+    assert spm.dtype == torch.float64
+    jspm = jmr.synthesize_half_pair(jm.cfg, jm.tables, dtype=jnp.float64,
+                                    pk_eff=jm.pk_eff)
+    np.testing.assert_allclose(spm.numpy(), np.asarray(jspm), rtol=0,
+                               atol=1e-12 * np.abs(np.asarray(jspm)).max())
+    want = np.asarray(mmfft.ifft3_half_pair(jspm))
+    got = ifft3_half_pair(spm).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())

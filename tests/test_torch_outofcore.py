@@ -276,7 +276,7 @@ def test_port_part1_stage_resumes_under_jax(tmp_path):
     ppd, over = 16, dict(FNL, **PLT)
     port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
     par = _write_par(tmp_path / "p.par", ppd, port_dir, **over)
-    flags = ["--device", "cpu", "--out-of-core", "--slab-mb", "1"]
+    flags = ["--device", "cpu", "--out-of-core", "--slab-mb", "1", "--dtype", "float32"]
     assert main([str(par), *flags, "--part", "1"]) == 0
     stage_path = port_dir / "zeldovich.kspace.mm"
     assert stage_path.exists()

@@ -143,3 +143,39 @@ def test_first_draw_state_of_every_mode():
     for y, z, x in [(0, 0, 0), (3, 9, 15), (7, 15, 1)]:
         s = pcg.bump(pcg.mode_state(seed, y, z, x, ppd))  # advance-then-output
         assert pcg.from_limbs32(got[y, z, x].astype(np.uint32)) == s
+
+
+EDGE_DRAWS = [0, 1, 2**32 - 1, 2**32, 2**53 - 2, 2**53 - 1, 2**53, 2**53 + 1, 2**53 + 2,
+              2**54 + 3, 2**63 - 1, 2**63, 2**63 + 2**10, 2**64 - 2**11 - 1,
+              2**64 - 2**11, 2**64 - 2**10 - 1, 2**64 - 2**10, 2**64 - 2, 2**64 - 1]
+
+
+@pytest.mark.parametrize("r", EDGE_DRAWS, ids=[hex(r) for r in EDGE_DRAWS])
+def test_uniform_exact_at_the_edges(r):
+    """The float64 uniform (r + 1) 2^-64 rounded to nearest, bit for bit
+    with JAX uniform_from_u64: draws below and above 2^53 (where r + 1 no
+    longer fits the mantissa and ties round to even), the largest ones
+    (which round up to 1.0) and the all-ones draw, whose r + 1 wraps: 1.0.
+    The CUDA kernels form it as one round-to-nearest convert of r + 1 and
+    an exact scaling, which is what Python's int-to-float is."""
+    lo = torch.tensor([r & 0xFFFFFFFF], dtype=torch.int64)
+    hi = torch.tensor([r >> 32], dtype=torch.int64)
+    got = tpcg.uniform_exact(lo, hi).numpy()
+    want = np.asarray(jpcg.uniform_from_u64(jnp.asarray(np.array([r], np.uint64)),
+                                            jnp.float64))
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    one_convert = 1.0 if r == 2**64 - 1 else float(r + 1) * 2.0**-64
+    assert got[0] == one_convert and 0.0 < got[0] <= 1.0
+
+
+def test_uniform_exact_bit_for_bit_on_large_draws():
+    """Random draws at and above 2^53, the range where the conversion of
+    r + 1 rounds."""
+    rng = np.random.default_rng(53)
+    r = rng.integers(2**53, 2**64 - 1, size=1 << 14, dtype=np.uint64, endpoint=True)
+    lo = torch.from_numpy((r & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    hi = torch.from_numpy((r >> np.uint64(32)).astype(np.int64))
+    np.testing.assert_array_equal(
+        tpcg.uniform_exact(lo, hi).numpy(),
+        np.asarray(jpcg.uniform_from_u64(jnp.asarray(r), jnp.float64)))

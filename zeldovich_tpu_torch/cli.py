@@ -10,11 +10,13 @@ checkpoint paths and exit codes.
 
   --device cuda (default) runs on the card and exits 1 when there is none;
   --device cpu runs the plain tensor-op versions (for tests and checks).
-  --dtype float32 (the default and the kernels' type, where the JAX CLI
-      defaults to float64) or float64 (--device cpu only until ROADMAP A6).
-      A .par that asks for a double ic_* format (RVdoubleZel, Zeldovich)
-      without --dtype gets one stderr line saying that its doubles carry
-      float32 rounding.
+  --dtype float64 (the default, as the JAX CLI's: full parity), float32
+      (half the memory and about half the time; the ic_* doubles of
+      RVdoubleZel and Zeldovich then carry float32 rounding, and one
+      stderr line says so) or df64.  Both types run through the
+      hand-written kernels on the card.  df64, in the JAX package float32
+      draws with emulated float64-grade transforms for a chip without
+      native doubles, is native float64 here; one stderr line says so.
   --out-of-core [--backing ram|disk] [--slab-mb N] streams y- and z-slabs
       of N MB through a host staging buffer (grids larger than the card).
   --part 1 writes the k-space checkpoint and stops: in-core the full grid
@@ -22,12 +24,13 @@ checkpoint paths and exit codes.
       stage as the memmap zeldovich.kspace.mm, both in the output
       directory; --part 2 resumes from it, writes the particles and
       removes it.  In core, --part 2 also takes the JAX CLI's complex
-      (narray, Y, Z, X) checkpoint of the run's precision.
+      (narray, Y, Z, X) checkpoint of the run's precision (complex128 by
+      default).
   --pair is accepted and changes nothing: the port is always the
       complex-free pair route.
 
 Flags of the JAX CLI that are not ported yet (--sharded, --distributed,
---coordinator, --num-processes, --process-id, --profile, --dtype df64)
+--coordinator, --num-processes, --process-id, --profile)
 exit 1 naming the ROADMAP item that will bring them.
 """
 
@@ -56,10 +59,9 @@ def main(argv=None):
     ap.add_argument("param_file", help="ParseHeader-style parameter file")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument(
-        "--dtype", choices=("float64", "float32", "df64"), default=None,
-        help="float32 (the default and the CUDA kernels' type; the JAX CLI "
-        "defaults to float64) or float64 (with --device cpu until ROADMAP A6 "
-        "runs it on the card)",
+        "--dtype", choices=("float64", "float32", "df64"), default="float64",
+        help="float64 (default: full parity), float32 (half the memory, "
+        "about half the time) or df64 (native float64 in this package)",
     )
     ap.add_argument("--part", type=int, choices=(1, 2), default=None)
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -75,8 +77,6 @@ def main(argv=None):
                     help="accepted for the JAX CLI's command lines; the port "
                     "is always the complex-free pair route")
     args = ap.parse_args(argv)
-    dtype_given = args.dtype is not None
-    args.dtype = args.dtype or "float32"
 
     for flag, (attr, item) in _NOT_PORTED.items():
         given = getattr(args, attr)
@@ -85,9 +85,10 @@ def main(argv=None):
                   f"{item}; use python -m zeldovich_tpu", file=sys.stderr)
             return 1
     if args.dtype == "df64":
-        print("--dtype df64 is not ported yet: ROADMAP A6 (native float64)",
+        print("--dtype df64 runs as native float64 in the torch package (the "
+              "double-float emulation is for chips without float64)",
               file=sys.stderr)
-        return 1
+        args.dtype = "float64"
 
     t_total = time.perf_counter()
 
@@ -96,10 +97,6 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (use --device cpu "
               "for the plain tensor-op route)", file=sys.stderr)
-        return 1
-    if args.device == "cuda" and args.dtype == "float64":
-        print("--dtype float64 on the card is ROADMAP A6; the kernels are "
-              "float32", file=sys.stderr)
         return 1
 
     from .models.pipeline import Zeldovich
@@ -122,12 +119,11 @@ def main(argv=None):
         return 1
     print(f"Generating ICs for ppd = {param.ppd}", file=sys.stderr)
     fmt = OUTPUT_DTYPES.get(param.ICFormat)  # an unknown format fails at the writer
-    if not dtype_given and fmt is not None and fmt["displ"].base.itemsize == 8:
-        print(f"ICFormat {param.ICFormat} stores doubles, but this run computes "
-              "in float32 (the port's default; python -m zeldovich_tpu defaults "
-              "to float64): the doubles carry float32 rounding. Pass --dtype "
-              "float64 --device cpu for parity until ROADMAP A6 runs float64 on "
-              "the card", file=sys.stderr)
+    if (args.dtype == "float32" and fmt is not None
+            and fmt["displ"].base.itemsize == 8):
+        print(f"ICFormat {param.ICFormat} stores doubles, but --dtype float32 "
+              "computes in float32: the doubles carry float32 rounding (the "
+              "default, --dtype float64, gives full parity)", file=sys.stderr)
 
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     itemsize = 16 if args.dtype == "float64" else 8

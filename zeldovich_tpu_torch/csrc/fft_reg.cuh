@@ -2,7 +2,10 @@
 // port (csrc/fft_pass.cuh lays it out along columns and rows),
 // unnormalized, in the FFTW sign convention of the JAX package; the sign
 // is the twiddle table's: w[j] = exp(sign 2 pi i j / N), j < N/2, computed
-// in double precision on the host and rounded once to float.
+// in double precision on the host and, for the float instances, rounded
+// once to float.  Every template takes the element type F (float or
+// double, real.cuh) first; the plan, the index maps and the exchanges are
+// the same for both.
 //
 // A length-N sequence (N a power of two in [16, 2048]) is transformed in
 // P <= 3 radix passes of radix 16, 8 or 4 (plan below):
@@ -27,7 +30,7 @@
 // and the JAX package's Pallas kernels at every N.
 #pragma once
 
-#include <cuda_runtime.h>
+#include "real.cuh"
 
 namespace zt {
 namespace reg {
@@ -67,107 +70,122 @@ __host__ __device__ constexpr int brev(int v, int bits) {
   return r;
 }
 
-// cos(2 pi m / 16), the literals rounded once to float
-__host__ __device__ constexpr float cos16(int m) {
+// cos(2 pi m / 16), the literals rounded once to F
+template <typename F>
+__host__ __device__ constexpr F cos16(int m);
+template <>
+__host__ __device__ constexpr float cos16<float>(int m) {
   return (m & 15) == 0   ? 1.0f
          : (m & 15) == 1 ? 0.923879532511286756f
          : (m & 15) == 2 ? 0.707106781186547524f
          : (m & 15) == 3 ? 0.382683432365089772f
          : (m & 15) == 4 ? 0.0f
-         : (m & 15) < 8  ? -cos16(8 - (m & 15))
-                         : -cos16((m & 15) - 8);
+         : (m & 15) < 8  ? -cos16<float>(8 - (m & 15))
+                         : -cos16<float>((m & 15) - 8);
+}
+template <>
+__host__ __device__ constexpr double cos16<double>(int m) {
+  return (m & 15) == 0   ? 1.0
+         : (m & 15) == 1 ? 0.923879532511286756
+         : (m & 15) == 2 ? 0.707106781186547524
+         : (m & 15) == 3 ? 0.382683432365089772
+         : (m & 15) == 4 ? 0.0
+         : (m & 15) < 8  ? -cos16<double>(8 - (m & 15))
+                         : -cos16<double>((m & 15) - 8);
 }
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+template <typename F>
+__device__ __forceinline__ vec2<F> cmul(vec2<F> a, vec2<F> w) {
+  return make2<F>(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
 }
 
 // a * exp(s 2 pi i K / L), L <= 16, s = +-1
-template <int L, int K>
-__device__ __forceinline__ float2 rot(float2 a, float s) {
+template <typename F, int L, int K>
+__device__ __forceinline__ vec2<F> rot(vec2<F> a, F s) {
   constexpr int m = K * 16 / L;
   if constexpr (m == 0) {
     return a;
   } else if constexpr (m == 4) {
-    return make_float2(-s * a.y, s * a.x);
+    return make2<F>(-s * a.y, s * a.x);
   } else {
-    constexpr float c = cos16(m), d = cos16(m + 12);  // cos, sin
-    return cmul(a, make_float2(c, s * d));
+    constexpr F c = cos16<F>(m), d = cos16<F>(m + 12);  // cos, sin
+    return cmul<F>(a, make2<F>(c, s * d));
   }
 }
 
-template <int L, int I, int OFF>
-__device__ __forceinline__ void dif_stage(float2* v, float s) {
+template <typename F, int L, int I, int OFF>
+__device__ __forceinline__ void dif_stage(vec2<F>* v, F s) {
   if constexpr (I < L / 2) {
-    const float2 a = v[OFF + I], b = v[OFF + I + L / 2];
-    v[OFF + I] = make_float2(a.x + b.x, a.y + b.y);
-    v[OFF + I + L / 2] = rot<L, I>(make_float2(a.x - b.x, a.y - b.y), s);
-    dif_stage<L, I + 1, OFF>(v, s);
+    const vec2<F> a = v[OFF + I], b = v[OFF + I + L / 2];
+    v[OFF + I] = make2<F>(a.x + b.x, a.y + b.y);
+    v[OFF + I + L / 2] = rot<F, L, I>(make2<F>(a.x - b.x, a.y - b.y), s);
+    dif_stage<F, L, I + 1, OFF>(v, s);
   }
 }
 
-template <int L, int OFF>
-__device__ __forceinline__ void dif(float2* v, float s) {
+template <typename F, int L, int OFF>
+__device__ __forceinline__ void dif(vec2<F>* v, F s) {
   if constexpr (L > 1) {
-    dif_stage<L, 0, OFF>(v, s);
-    dif<L / 2, OFF>(v, s);
-    dif<L / 2, OFF + L / 2>(v, s);
+    dif_stage<F, L, 0, OFF>(v, s);
+    dif<F, L / 2, OFF>(v, s);
+    dif<F, L / 2, OFF + L / 2>(v, s);
   }
 }
 
 // Swaps v[OFF + K] with v[OFF + brev(K)]: every index a compile-time
 // constant, so the array stays in registers (a bit reversal computed at
 // run time would index it dynamically and move it to local memory).
-template <int R, int OFF, int K = 0>
-__device__ __forceinline__ void unscramble(float2* v) {
+template <typename F, int R, int OFF, int K = 0>
+__device__ __forceinline__ void unscramble(vec2<F>* v) {
   if constexpr (K < R) {
     constexpr int J = brev(K, log2c(R));
     if constexpr (K < J) {
-      const float2 x = v[OFF + K];
+      const vec2<F> x = v[OFF + K];
       v[OFF + K] = v[OFF + J];
       v[OFF + J] = x;
     }
-    unscramble<R, OFF, K + 1>(v);
+    unscramble<F, R, OFF, K + 1>(v);
   }
 }
 
 // In-register DFT of v[OFF, OFF + L), natural order in and out: radix-2
 // decimation in frequency, then the bit-reversal as register renaming.
-template <int L, int OFF>
-__device__ __forceinline__ void dft_regs(float2* v, float s) {
-  dif<L, OFF>(v, s);
-  unscramble<L, OFF>(v);
+template <typename F, int L, int OFF>
+__device__ __forceinline__ void dft_regs(vec2<F>* v, F s) {
+  dif<F, L, OFF>(v, s);
+  unscramble<F, L, OFF>(v);
 }
 
 // w^k from the half table tw[j] = exp(sign 2 pi i j / N), j < N/2, k < N
-template <int N>
-__device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int k) {
-  const float2 w = __ldg(&tw[k & (N / 2 - 1)]);
-  return (k & (N / 2)) ? make_float2(-w.x, -w.y) : w;
+template <typename F, int N>
+__device__ __forceinline__ vec2<F> twiddle(const vec2<F>* __restrict__ tw, int k) {
+  const vec2<F> w = __ldg(&tw[k & (N / 2 - 1)]);
+  return (k & (N / 2)) ? make2<F>(-w.x, -w.y) : w;
 }
 
 // Butterfly B (and the ones after it) of pass P on the thread's
 // registers v[B * R + r], for j = t + B * T, in place.
-template <int N, int P, int B = 0>
-__device__ __forceinline__ void butterflies(float2* v, int t, const float2* __restrict__ tw,
-                                            float s) {
+template <typename F, int N, int P, int B = 0>
+__device__ __forceinline__ void butterflies(vec2<F>* v, int t,
+                                            const vec2<F>* __restrict__ tw, F s) {
   constexpr int R = radix(N, P), E = elems(N), T = N / E, NS = stride_before(N, P);
   if constexpr (B < E / R) {
     if constexpr (NS > 1) {
       const int k = ((t + B * T) % NS) * (N / (NS * R));
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[B * R + r] = cmul(v[B * R + r], twiddle<N>(tw, r * k));
+      for (int r = 1; r < R; ++r)
+        v[B * R + r] = cmul<F>(v[B * R + r], twiddle<F, N>(tw, r * k));
     }
-    dft_regs<R, B * R>(v, s);
-    butterflies<N, P, B + 1>(v, t, tw, s);
+    dft_regs<F, R, B * R>(v, s);
+    butterflies<F, N, P, B + 1>(v, t, tw, s);
   }
 }
 
-// Float offset of index i of a sequence in a shared-memory plane: one
-// float of padding after every 2^S indices spreads the exchange's strided
-// accesses over the banks; STRIDE is the distance of consecutive indices
-// (the tile's width for columns, 1 for rows) and lane the sequence's own
-// offset.
+// Element offset of index i of a sequence in a shared-memory plane: one
+// element of padding after every 2^S indices spreads the exchange's
+// strided accesses over the banks; STRIDE is the distance of consecutive
+// indices (the tile's width for columns, 1 for rows) and lane the
+// sequence's own offset.
 template <int S, int STRIDE>
 __device__ __forceinline__ int smem_at(int lane, int i) {
   return lane + (i + (i >> S)) * STRIDE;
@@ -181,9 +199,9 @@ __host__ __device__ constexpr int padded(int n, int s) { return n + (n >> s); }
 // then every thread reads the elements of pass P + 1's butterflies.  A
 // thread carries C sequences of adjacent lanes (lane, lane + 1), C = 1
 // or 2: v[c * E + e]; with C = 2 (lane even) each access moves the pair
-// as one 8-byte word.
-template <int N, int P, int S, int STRIDE, int C = 1>
-__device__ __forceinline__ void exchange(float2* v, int t, float* sre, float* sim, int lane) {
+// as one word of two elements (float alone: fft_pass.cuh's cols_c).
+template <typename F, int N, int P, int S, int STRIDE, int C = 1>
+__device__ __forceinline__ void exchange(vec2<F>* v, int t, F* sre, F* sim, int lane) {
   static_assert(C == 1 || C == 2, "one or two sequences a thread");
   constexpr int R = radix(N, P), E = elems(N), T = N / E, NS = stride_before(N, P);
   constexpr int R2 = radix(N, P + 1);
@@ -195,11 +213,11 @@ __device__ __forceinline__ void exchange(float2* v, int t, float* sre, float* si
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int a = smem_at<S, STRIDE>(lane, d + r * NS);
-      const float2 x = v[b * R + r];
+      const vec2<F> x = v[b * R + r];
       if constexpr (C == 2) {
-        const float2 y = v[E + b * R + r];
-        *reinterpret_cast<float2*>(sre + a) = make_float2(x.x, y.x);
-        *reinterpret_cast<float2*>(sim + a) = make_float2(x.y, y.y);
+        const vec2<F> y = v[E + b * R + r];
+        *reinterpret_cast<vec2<F>*>(sre + a) = make2<F>(x.x, y.x);
+        *reinterpret_cast<vec2<F>*>(sim + a) = make2<F>(x.y, y.y);
       } else {
         sre[a] = x.x;
         sim[a] = x.y;
@@ -213,18 +231,27 @@ __device__ __forceinline__ void exchange(float2* v, int t, float* sre, float* si
     for (int r = 0; r < R2; ++r) {
       const int a = smem_at<S, STRIDE>(lane, t + b * T + r * (N / R2));
       if constexpr (C == 2) {
-        const float2 re = *reinterpret_cast<const float2*>(sre + a);
-        const float2 im = *reinterpret_cast<const float2*>(sim + a);
-        v[b * R2 + r] = make_float2(re.x, im.x);
-        v[E + b * R2 + r] = make_float2(re.y, im.y);
+        const vec2<F> re = *reinterpret_cast<const vec2<F>*>(sre + a);
+        const vec2<F> im = *reinterpret_cast<const vec2<F>*>(sim + a);
+        v[b * R2 + r] = make2<F>(re.x, im.x);
+        v[E + b * R2 + r] = make2<F>(re.y, im.y);
       } else {
-        v[b * R2 + r] = make_float2(sre[a], sim[a]);
+        v[b * R2 + r] = make2<F>(sre[a], sim[a]);
       }
     }
   }
 }
 
 }  // namespace reg
+
+// A kernel's dynamic shared memory as elements of F.  One untyped array
+// for every instance: an extern array of the element type itself would be
+// declared with two types where one file held both instances.
+template <typename F>
+__device__ __forceinline__ F* shared_elems() {
+  extern __shared__ __align__(16) unsigned char zt_smem[];
+  return reinterpret_cast<F*>(zt_smem);
+}
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename K>

@@ -5,10 +5,13 @@
 // start state with the precomposed, pre-bumped (z, x) jump map (see
 // zeldovich_tpu/ops/pcg.py); the second draw is one LCG step later.  The
 // float32 draws follow the JAX package's fast semantics op for op
-// (pcg_device.fast_uniform_f32 and the minimax sincos_2pi, ROADMAP C3).
+// (pcg_device.fast_uniform_f32 and the minimax sincos_2pi, ROADMAP C3);
+// the float64 draws its exact ones (uniform_from_u64: (r + 1) 2^-64
+// rounded to nearest, the all-ones draw 1.0; library log, cos and sin of
+// fl(2 pi) T).  The integer stream is the same, bit for bit, for both.
 #pragma once
 
-#include <cuda_runtime.h>
+#include "real.cuh"
 
 namespace zt {
 
@@ -71,11 +74,28 @@ __device__ __forceinline__ void sincos_2pi(float T, float* c_out, float* s_out) 
   *s_out = sign * s;
 }
 
+// The exact float64 uniform (the JAX package's uniform_from_u64, the
+// reference's one_rand): (r + 1) * 2^-64 in (0, 1], r + 1 rounded to
+// nearest in one convert; the all-ones draw, whose r + 1 wraps, is 1.0.
+__device__ __forceinline__ double exact_uniform(u64 r) {
+  return r == ~0ULL ? 1.0 : __ull2double_rn(r + 1) * 0x1p-64;
+}
+
+template <typename F>
+__device__ __forceinline__ F uniform(u64 r) {
+  if constexpr (sizeof(F) == 4) {
+    return fast_uniform(r);
+  } else {
+    return exact_uniform(r);
+  }
+}
+
 // A mode's two uniforms (R, T) from its first-draw state s1: the integer
 // half of its work (the LCG step to the second state, two XSL-RR draws).
-__device__ __forceinline__ float2 mode_uniforms(u128 s1) {
+template <typename F>
+__device__ __forceinline__ vec2<F> mode_uniforms(u128 s1) {
   const u128 s2 = s1 * pcg_mult() + pcg_inc();
-  return make_float2(fast_uniform(xsl_rr(s1)), fast_uniform(xsl_rr(s2)));
+  return make2<F>(uniform<F>(xsl_rr(s1)), uniform<F>(xsl_rr(s2)));
 }
 
 // The float half: D = live * cgauss(pk) from (R, T), amp = sqrt(pk) (fixed
@@ -91,12 +111,26 @@ __device__ __forceinline__ float2 mode_deviate(float2 RT, float pk, bool fixed_p
   return make_float2(__fmul_rn(amp, cv), __fmul_rn(amp, sv));
 }
 
+// The same in double: the library's log, cos and sin, the angle
+// fl(2 pi) * T as the JAX package's float64 branch forms it.
+__device__ __forceinline__ double2 mode_deviate(double2 RT, double pk, bool fixed_power,
+                                                double live) {
+  double amp = fixed_power ? sqrt(pk) : sqrt(__dmul_rn(-pk, log(RT.x)));
+  amp = __dmul_rn(live, amp);
+  // T is in (0, 1]: the angle never reaches sincos's large-argument
+  // reduction, but the call and its 40-byte result buffer are compiled in
+  // (the stack frame that ptxas reports for every double draw kernel)
+  double cv, sv;
+  sincos(__dmul_rn(6.283185307179586, RT.y), &sv, &cv);
+  return make_double2(__dmul_rn(amp, cv), __dmul_rn(amp, sv));
+}
+
 // One mode's deviate from its first-draw state.  A kernel that walks
 // several modes a thread calls the two halves itself, so that one mode's
 // integer chain can run beside another's logarithm (B4).
-__device__ __forceinline__ float2 gaussian_mode(u128 s1, float pk, bool fixed_power,
-                                                float live) {
-  return mode_deviate(mode_uniforms(s1), pk, fixed_power, live);
+template <typename F>
+__device__ __forceinline__ vec2<F> gaussian_mode(u128 s1, F pk, bool fixed_power, F live) {
+  return mode_deviate(mode_uniforms<F>(s1), pk, fixed_power, live);
 }
 
 }  // namespace zt

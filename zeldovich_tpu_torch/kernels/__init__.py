@@ -8,8 +8,14 @@ the library), and loaded with ctypes.  Nothing is built when this module
 is imported, and nothing here falls back: a missing compiler, a failed
 build or a failed launch raises.
 
-Each launch wrapper adds one to its entry of ``launches``; a run reads the
-counts to show that its main path went through the kernels.
+Every kernel exists for float32 and float64: ``X.cu`` holds the templates
+and instantiates them for float, ``X_f64.cu`` includes it with the element
+type set to double and exports the same entry points as ``*_f64``.  A
+launch wrapper picks the entry by the dtype of the tensor it writes.
+
+Each launch wrapper adds one to its entry of ``launches`` (one counter a
+kernel, whatever the element type); a run reads the counts to show that
+its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -37,7 +43,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 launches = {"halfspace_pack_zx": 0, "c2r_y": 0, "halfspace_boxmuller": 0,
             "zx_dft": 0, "y_dft": 0, "boxmuller": 0, "halfspace_pack": 0}
 
-_VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the kernels' element types -> (entry-point suffix, the C type of a scalar)
+REAL = {torch.float32: ("", ctypes.c_float), torch.float64: ("_f64", ctypes.c_double)}
 
 
 def reset_launches():
@@ -109,16 +117,26 @@ def build(force: bool = False) -> float:
 
 
 def ptxas_report() -> list[str]:
-    """Per-kernel registers, shared memory and spills from the build log."""
+    """Per-kernel registers, shared memory and spills from the build log,
+    each line ``<entry> [<source>]: ...``.  ptxas also reports the device
+    functions it did not inline (the double sincos's large-argument
+    reduction): those lines read ``<function> in <entry> [<source>]``."""
     if not LOG.exists():
         return []
-    out, name = [], None
+    out, entry, fn, src = [], None, None, "?"
     for line in LOG.read_text().splitlines():
+        cu = re.search(r" -c -o \S+ \S*?(\w+)\.cu$", line)
         m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m.group(1)
-        elif name and ("Used" in line or "spill" in line):
-            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+        f = re.search(r"Function properties for (\w+)", line)
+        if cu:  # an nvcc command line: the source of the entries below
+            src = cu.group(1)
+        elif m:
+            entry = fn = m.group(1)
+        elif f:
+            fn = f.group(1)
+        elif entry and ("Used" in line or "spill" in line):
+            who = entry if fn == entry or "Used" in line else f"{fn} in {entry}"
+            out.append(f"{who} [{src}]: {line.split(':', 1)[-1].strip()}")
     return out
 
 
@@ -131,20 +149,17 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(LIB))
-        lib.zt_b1_pack_zx.restype = _I
-        lib.zt_b1_pack_zx.argtypes = [_VP] * 7 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_VP]
-        lib.zt_b2_c2r_y.restype = _I
-        lib.zt_b2_c2r_y.argtypes = [_VP] * 3 + [_I, _LL] + [_I] * 3 + [_VP]
-        lib.zt_b4_boxmuller.restype = _I
-        lib.zt_b4_boxmuller.argtypes = [_VP] * 7 + [_I] * 4 + [_VP]
-        lib.zt_b5_boxmuller_at.restype = _I
-        lib.zt_b5_boxmuller_at.argtypes = [_VP] * 10 + [_LL, _I, _I, _I, _VP]
-        lib.zt_b3_pack.restype = _I
-        lib.zt_b3_pack.argtypes = [_VP] * 6 + [_I] * 3 + [_F, _F, _I, _VP]
-        lib.zt_zx_dft.restype = _I
-        lib.zt_zx_dft.argtypes = [_VP] * 3 + [_I, _I, _LL, _I, _VP]
-        lib.zt_y_dft.restype = _I
-        lib.zt_y_dft.argtypes = [_VP] * 3 + [_I, _LL, _LL, _I, _VP]
+        for suffix, R in REAL.values():
+            for name, argtypes in (
+                    ("zt_b1_pack_zx", [_VP] * 7 + [_I] * 3 + [R, R] + [_I] * 3 + [_VP]),
+                    ("zt_b2_c2r_y", [_VP] * 3 + [_I, _LL] + [_I] * 3 + [_VP]),
+                    ("zt_b4_boxmuller", [_VP] * 7 + [_I] * 4 + [_VP]),
+                    ("zt_b5_boxmuller_at", [_VP] * 10 + [_LL, _I, _I, _I, _VP]),
+                    ("zt_b3_pack", [_VP] * 6 + [_I] * 3 + [R, R, _I, _VP]),
+                    ("zt_zx_dft", [_VP] * 3 + [_I, _I, _LL, _I, _VP]),
+                    ("zt_y_dft", [_VP] * 3 + [_I, _LL, _LL, _I, _VP])):
+                fn = getattr(lib, name + suffix)
+                fn.restype, fn.argtypes = _I, argtypes
         lib.zt_error_string.restype = ctypes.c_char_p
         lib.zt_error_string.argtypes = [_I]
         _lib = lib
@@ -160,12 +175,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _entry(lib, name: str, out: torch.Tensor):
+    """The entry point `name` of out's element type (float32 or float64)."""
+    if out.dtype not in REAL:
+        raise TypeError(f"{name}: the kernels are float32 and float64, got {out.dtype}")
+    return getattr(lib, name + REAL[out.dtype][0])
+
+
 def launch_pack_zx(planes64, mzx64, czx64, pk, coefs, tw, out, n, narray,
                    flags, fund, fund2, ky0):
     """B1: synthesis + packing + ky=0 fixup + x/z inverse DFTs of the
     generated planes [ky0, ky0 + len(pk)) into out."""
     lib = library()
-    rc = lib.zt_b1_pack_zx(
+    rc = _entry(lib, "zt_b1_pack_zx", out)(
         planes64.data_ptr(), mzx64.data_ptr(), czx64.data_ptr(),
         pk.data_ptr(), None if coefs is None else coefs.data_ptr(),
         tw.data_ptr(), out.data_ptr(), n, narray, flags, fund, fund2, ky0,
@@ -179,7 +201,7 @@ def launch_c2r_y(g, tw, out, n, narray, has_nyq):
     """B2: half-spectrum c2r inverse DFT along y into out (out may be g
     when it has no Nyquist row)."""
     lib = library()
-    rc = lib.zt_b2_c2r_y(
+    rc = _entry(lib, "zt_b2_c2r_y", out)(
         g.data_ptr(), tw.data_ptr(), out.data_ptr(), n,
         g.shape[-2] * g.shape[-1], narray, int(has_nyq), out.device.index,
         _stream(out),
@@ -193,7 +215,7 @@ def launch_boxmuller(planes64, mzx64, czx64, pk, live, re, im, n, half,
     """B4: draws + Box-Muller over the `half` generated planes whose start
     states are planes64's rows, into re, im."""
     lib = library()
-    rc = lib.zt_b4_boxmuller(
+    rc = _entry(lib, "zt_b4_boxmuller", re)(
         planes64.data_ptr(), mzx64.data_ptr(), czx64.data_ptr(), pk.data_ptr(),
         None if live is None else live.data_ptr(), re.data_ptr(), im.data_ptr(),
         n, half, int(fixed_power), re.device.index, _stream(re),
@@ -206,7 +228,7 @@ def launch_boxmuller_at(sy, sz, sx, planes64, mzx64, czx64, pk, live, re, im,
                         count, n, fixed_power):
     """B5: draws + Box-Muller at per-mode source indices into re, im."""
     lib = library()
-    rc = lib.zt_b5_boxmuller_at(
+    rc = _entry(lib, "zt_b5_boxmuller_at", re)(
         sy.data_ptr(), sz.data_ptr(), sx.data_ptr(), planes64.data_ptr(),
         mzx64.data_ptr(), czx64.data_ptr(), pk.data_ptr(), live.data_ptr(),
         re.data_ptr(), im.data_ptr(), count, n, int(fixed_power),
@@ -220,7 +242,7 @@ def launch_halfspace_pack(planes64, mzx64, czx64, pk, coefs, out, n, narray,
                           flags, fund, fund2):
     """B3: the packed half spectrum (ky=0 raw, Nyquist row zero) into out."""
     lib = library()
-    rc = lib.zt_b3_pack(
+    rc = _entry(lib, "zt_b3_pack", out)(
         planes64.data_ptr(), mzx64.data_ptr(), czx64.data_ptr(),
         pk.data_ptr(), None if coefs is None else coefs.data_ptr(),
         out.data_ptr(), n, narray, flags, fund, fund2, out.device.index,
@@ -233,8 +255,9 @@ def launch_halfspace_pack(planes64, mzx64, czx64, pk, coefs, out, n, narray,
 def launch_zx_dft(pair, out, tw, n, K, batch):
     """B6/B7: DFT over (z, x) of (batch, 2, K, n, n) pairs into out."""
     lib = library()
-    rc = lib.zt_zx_dft(pair.data_ptr(), out.data_ptr(), tw.data_ptr(), n, K,
-                       batch, out.device.index, _stream(out))
+    rc = _entry(lib, "zt_zx_dft", out)(
+        pair.data_ptr(), out.data_ptr(), tw.data_ptr(), n, K, batch,
+        out.device.index, _stream(out))
     _check(lib, rc, "zx_dft")
     launches["zx_dft"] += 1
 
@@ -242,7 +265,8 @@ def launch_zx_dft(pair, out, tw, n, K, batch):
 def launch_y_dft(pair, out, tw, n, inner, batch):
     """B8: DFT along y of (batch, 2, n, inner) pairs into out."""
     lib = library()
-    rc = lib.zt_y_dft(pair.data_ptr(), out.data_ptr(), tw.data_ptr(), n, inner,
-                      batch, out.device.index, _stream(out))
+    rc = _entry(lib, "zt_y_dft", out)(
+        pair.data_ptr(), out.data_ptr(), tw.data_ptr(), n, inner, batch,
+        out.device.index, _stream(out))
     _check(lib, rc, "y_dft")
     launches["y_dft"] += 1

@@ -20,8 +20,9 @@ takes the general source-index synthesis: the JAX package's identity
 fast path for slabs (``synthesize_slab_pair_identity``) is wrong outside
 rows [0, ppd/2) (ROADMAP C1) and is not ported.
 
-The stage layout ``(narray, 2, ppd, ppd, ppd)`` float32 is byte for byte
-the JAX pair stage, so either package resumes the other's PART1 stage.
+The stage layout ``(narray, 2, ppd, ppd, ppd)`` in the run's element type
+(float32 or float64) is byte for byte the JAX pair stage of that type, so
+either package resumes the other's PART1 stage.
 Each streaming loop runs one slab ahead (utils/streamio.py).
 """
 

@@ -3,7 +3,8 @@
 Port of ``zeldovich_tpu/models/pipeline.py``: parameters -> P(k), M(k) and
 RNG tables (setup) -> the cached static fields pk_eff and the PLT
 coefficient planes -> the forward step -> streamed particle output + QA
-report.  The forward step takes one of two routes:
+report, all in the model's ``dtype`` (float32 or float64: every kernel
+has an instance of each).  The forward step takes one of two routes:
 
 * the half spectrum (``half_exact`` configurations): B1 (synthesis +
   packing + z/x transforms) and B2 (c2r along y); or, through the model

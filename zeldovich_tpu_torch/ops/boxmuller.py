@@ -17,8 +17,10 @@ Ports of ``zeldovich_tpu/ops/pallas_synth.py``:
   them itself from the indices, one native 128-bit multiply-add.
 
 On a CUDA tensor each launches its hand-written kernel
-(csrc/boxmuller.cu) or raises; on a CPU tensor it runs the plain version,
-the draw chain in int64-limb torch ops (``modes_real.gaussian``).
+(csrc/boxmuller.cu, the float32 or the float64 instance by pk's dtype:
+the fast float32 draws or the exact float64 ones) or raises; on a CPU
+tensor it runs the plain version, the draw chain in int64-limb torch ops
+(``modes_real.gaussian``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from .. import kernels
 from .modes import SynthTables
 from .modes_real import draw_planes, gaussian, y_chunk
-from .synth import check_kernel_size, check_operands
+from .synth import check_kernel_dtype, check_kernel_size, check_operands
 
 
 def _check_planes(tables: SynthTables, rows: int, ky0: int):
@@ -80,10 +82,11 @@ def halfspace_boxmuller(tables: SynthTables, pk, fixed_power: bool, live=None,
     rows, n = pk.shape[0], pk.shape[-1]
     check_kernel_size(n)
     _check_planes(tables, rows, ky0)
-    want = {"pk": (pk, (rows, n, n), torch.float32),
+    check_kernel_dtype(pk.dtype)
+    want = {"pk": (pk, (rows, n, n), pk.dtype),
             **_table_operands(tables, n, tables.planes64.shape[0])}
     if live is not None:
-        want["live"] = (live, (rows, n, n), torch.float32)
+        want["live"] = (live, (rows, n, n), pk.dtype)
     check_operands(want, dev)
     re, im = torch.empty_like(pk), torch.empty_like(pk)
     kernels.launch_boxmuller(tables.planes64[ky0:ky0 + rows], tables.mzx64,
@@ -124,10 +127,11 @@ def boxmuller(tables: SynthTables, sy, sz, sx, pk, live, fixed_power: bool):
     half = tables.planes64.shape[0]
     check_kernel_size(n)
     shape = tuple(pk.shape)
+    check_kernel_dtype(pk.dtype)
     want = {
         "sy": (sy, shape, torch.int32), "sz": (sz, shape, torch.int32),
-        "sx": (sx, shape, torch.int32), "pk": (pk, shape, torch.float32),
-        "live": (live, shape, torch.float32), **_table_operands(tables, n, half),
+        "sx": (sx, shape, torch.int32), "pk": (pk, shape, pk.dtype),
+        "live": (live, shape, pk.dtype), **_table_operands(tables, n, half),
     }
     check_operands(want, dev)
     re, im = torch.empty_like(pk), torch.empty_like(pk)

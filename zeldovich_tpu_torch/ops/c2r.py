@@ -8,8 +8,9 @@ re = D and im = F, unnormalized, sign +1.  ``n`` is explicit: ky is n/2 + 1 (Nyq
 (Nyquist-free), never inferred from parity, which is ambiguous for
 n = 2 (mod 4).
 
-On a CUDA tensor it launches the hand-written kernel (csrc/c2r.cu) or
-raises; on a CPU tensor it runs the plain version, which follows
+On a CUDA tensor it launches the hand-written kernel (csrc/c2r.cu, the
+float32 or the float64 instance by the tensor's dtype) or raises; on a
+CPU tensor it runs the plain version, which follows
 ``mmfft.c2r_y_pair``: 2D~ = S+ + S-, 2iF~ = S+ - S-, then
 ``torch.fft.irfft(..., norm="forward")`` along y.
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .synth import check_kernel_size, twiddles
+from .synth import check_kernel_dtype, check_kernel_size, twiddles
 
 
 def _nyquist(spm, n: int) -> bool:
@@ -82,15 +83,18 @@ def c2r_y(spm, n: int, out=None):
     if spm.device.type != "cuda":
         raise ValueError(f"c2r_y: no kernel for device {spm.device}")
     check_kernel_size(n)
-    if spm.dim() != 6 or (spm.shape[-2] * spm.shape[-1]) % 2:
-        raise ValueError(f"c2r_y kernel: want (narray, 2, 2, ky, Bz, X) with Bz * X "
-                         f"even, got {tuple(spm.shape)}")
-    if spm.dtype != torch.float32 or not spm.is_contiguous() or spm.data_ptr() % 8:
-        raise ValueError(f"c2r_y kernel: want contiguous float32 on an 8-byte "
-                         f"boundary, got {spm.dtype}")
+    check_kernel_dtype(spm.dtype)
+    # float32 moves two adjacent columns as one 8-byte word
+    odd = spm.dtype == torch.float32 and (spm.shape[-2] * spm.shape[-1]) % 2
+    if spm.dim() != 6 or odd:
+        raise ValueError(f"c2r_y kernel: want (narray, 2, 2, ky, Bz, X), Bz * X "
+                         f"even for float32, got {tuple(spm.shape)}")
+    if not spm.is_contiguous() or spm.data_ptr() % 8:
+        raise ValueError("c2r_y kernel: want a contiguous input on an 8-byte boundary")
     narray = spm.shape[0]
     if dst is None:
-        dst = torch.empty((narray, 2, n, *spm.shape[-2:]), dtype=torch.float32,
+        dst = torch.empty((narray, 2, n, *spm.shape[-2:]), dtype=spm.dtype,
                           device=spm.device)
-    kernels.launch_c2r_y(spm, twiddles(n, spm.device), dst, n, narray, has_nyq)
+    kernels.launch_c2r_y(spm, twiddles(n, spm.device, +1, spm.dtype), dst, n, narray,
+                         has_nyq)
     return dst

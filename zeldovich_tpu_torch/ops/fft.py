@@ -11,7 +11,8 @@ Ports of ``zeldovich_tpu/ops/pallas_fft.py``:
 Both are unnormalized with the FFTW sign convention (sign +1: no 1/N on
 the inverse) and take ``out``, which may be the input itself (in place).
 On a CUDA tensor each launches its hand-written kernel
-(csrc/fft_axis.cu) or raises; on a CPU tensor it runs the plain version,
+(csrc/fft_axis.cu, the float32 or the float64 instance by the tensor's
+dtype) or raises; on a CPU tensor it runs the plain version,
 ``torch.fft.ifftn(..., norm="forward")`` for sign +1 and
 ``torch.fft.fftn(..., norm="backward")`` for sign -1 over the same axes.
 """
@@ -23,7 +24,7 @@ import math
 import torch
 
 from .. import kernels
-from .synth import check_kernel_size, twiddles
+from .synth import check_kernel_dtype, check_kernel_size, twiddles
 
 
 def _plain(pair, sign: int, dims, out):
@@ -77,17 +78,19 @@ def _kernel_args(pair, out, n, sign, what):
     if pair.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {pair.device}")
     check_kernel_size(n)
-    if pair.dtype != torch.float32 or not pair.is_contiguous():
-        raise ValueError(f"{what} kernel: want contiguous float32, got "
-                         f"{pair.dtype} (contiguous: {pair.is_contiguous()})")
+    check_kernel_dtype(pair.dtype)
+    if not pair.is_contiguous():
+        raise ValueError(f"{what} kernel: want a contiguous input")
     if out is None:
         out = torch.empty_like(pair)
     elif not out.is_contiguous():
         raise ValueError(f"{what} kernel: out must be contiguous")
+    # a float32 thread moves two adjacent columns as one 8-byte word, a
+    # float64 thread one 8-byte element
     if pair.data_ptr() % 8 or out.data_ptr() % 8:
         raise ValueError(f"{what} kernel: want data on 8-byte boundaries")
     batch = math.prod(pair.shape[:-4])
-    return out, twiddles(n, pair.device, sign), batch
+    return out, twiddles(n, pair.device, sign, pair.dtype), batch
 
 
 def zx_dft(pair, sign: int, out=None):
@@ -107,8 +110,8 @@ def y_dft(pair, sign: int, out=None):
     if pair.device.type == "cpu":
         return y_dft_plain(pair, sign, out)
     n, inner = pair.shape[-3], pair.shape[-2] * pair.shape[-1]
-    if inner % 2:
-        raise ValueError(f"y_dft kernel: want an even Bz * X, got {inner}")
+    if inner % 2 and pair.dtype == torch.float32:
+        raise ValueError(f"y_dft kernel: float32 wants an even Bz * X, got {inner}")
     out, tw, batch = _kernel_args(pair, out, n, sign, "y_dft")
     kernels.launch_y_dft(pair, out, tw, n, inner, batch)
     return out

@@ -12,9 +12,9 @@ Ports of ``zeldovich_tpu/ops/pallas_synth.py``:
   untransformed ``(narray, 2, 2, half+1, Z, X)`` with the ky=0 plane raw
   and the Nyquist row zero: the separate-kernel half route's synthesis.
 
-On a CUDA tensor each launches its hand-written kernel (csrc/synth.cu)
-or raises; on a CPU tensor it runs the plain version: for B1
-``pack_rows`` and the ky=0 fixup followed by an unnormalized sign +1
+On a CUDA tensor each launches its hand-written kernel (csrc/synth.cu,
+the float32 or the float64 instance by pk_eff's dtype) or raises; on a
+CPU tensor it runs the plain version: for B1 ``pack_rows`` and the ky=0 fixup followed by an unnormalized sign +1
 complex FFT over (z, x), for B3 ``pack_half_raw``.
 """
 
@@ -32,15 +32,24 @@ from .modes_real import fix_ky0_packed, pack_half_raw, pack_rows
 _FIXED_POWER, _JUST_DENSITY, _QPLT = 1, 2, 4
 
 
-@lru_cache(maxsize=16)
-def twiddles(n: int, device: torch.device, sign: int = +1) -> torch.Tensor:
-    """(n/2, 2) float32 table of exp(sign 2 pi i j / n), from float64: the
-    kernels' FFTs transform in the table's sign."""
+@lru_cache(maxsize=32)
+def twiddles(n: int, device: torch.device, sign: int = +1,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(n/2, 2) table of exp(sign 2 pi i j / n) in ``dtype``, computed in
+    float64 (and rounded once for float32): the kernels' FFTs transform in
+    the table's sign."""
     if sign not in (1, -1):
         raise ValueError(f"sign must be +1 or -1, got {sign}")
+    check_kernel_dtype(dtype)
     w = np.exp(sign * 2j * np.pi * np.arange(n // 2) / n)
-    tw = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
+    tw = np.stack([w.real, w.imag], axis=-1)
+    return torch.from_numpy(tw).to(device, dtype)
+
+
+def check_kernel_dtype(dtype):
+    """The kernels exist for float32 and float64 (kernels.REAL)."""
+    if dtype not in kernels.REAL:
+        raise TypeError(f"the CUDA kernels are float32 and float64, got {dtype}")
 
 
 def check_kernel_size(n: int):
@@ -84,8 +93,8 @@ def _kernel_operands(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs,
         raise ValueError(f"{what}: no kernel for device {dev}")
     n, half = cfg.ppd, cfg.ppd // 2
     check_kernel_size(n)
-    if pk_eff.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel is float32, got {pk_eff.dtype}")
+    dtype = pk_eff.dtype
+    check_kernel_dtype(dtype)
     if cfg.qPLT and plt_coefs is None:
         raise ValueError("PLT needs the coefficient planes (plt_coef_fields)")
     rows = pk_eff.shape[0]
@@ -93,20 +102,22 @@ def _kernel_operands(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs,
         raise ValueError(f"{what}: planes [{ky0}, {ky0 + rows}) outside [0, {half})")
     coefs = plt_coefs if cfg.qPLT else None
     want = {
-        "pk_eff": (pk_eff, (rows, n, n), torch.float32),
+        "pk_eff": (pk_eff, (rows, n, n), dtype),
         "planes64": (tables.planes64, (half, 2), torch.int64),
         "mzx64": (tables.mzx64, (2, n, n), torch.int64),
         "czx64": (tables.czx64, (2, n, n), torch.int64),
     }
     if coefs is not None:
-        want["plt_coefs"] = (coefs, (4, rows, n, n), torch.float32)
+        want["plt_coefs"] = (coefs, (4, rows, n, n), dtype)
     check_operands(want, dev)
     flags = (
         (_FIXED_POWER if cfg.fixed_power else 0)
         | (_JUST_DENSITY if cfg.just_density else 0)
         | (_QPLT if coefs is not None else 0)
     )
-    fund = np.float32(cfg.fundamental)
+    # the fundamental and its square rounded to the element type, as the
+    # plain version's field_coefs forms them
+    fund = (np.float32 if dtype == torch.float32 else np.float64)(cfg.fundamental)
     return coefs, flags, float(fund), float(fund * fund)
 
 
@@ -124,11 +135,12 @@ def halfspace_pack_zx(cfg: SynthConfig, tables: SynthTables, pk_eff,
     coefs, flags, fund, fund2 = _kernel_operands(cfg, tables, pk_eff, plt_coefs,
                                                  "halfspace_pack_zx", ky0)
     n, rows = cfg.ppd, pk_eff.shape[0]
-    out = torch.empty((cfg.narray, 2, 2, rows, n, n), dtype=torch.float32,
+    out = torch.empty((cfg.narray, 2, 2, rows, n, n), dtype=pk_eff.dtype,
                       device=pk_eff.device)
     kernels.launch_pack_zx(
         tables.planes64, tables.mzx64, tables.czx64, pk_eff, coefs,
-        twiddles(n, pk_eff.device), out, n, cfg.narray, flags, fund, fund2, ky0,
+        twiddles(n, pk_eff.device, +1, pk_eff.dtype), out, n, cfg.narray, flags,
+        fund, fund2, ky0,
     )
     return out
 
@@ -144,7 +156,7 @@ def halfspace_pack(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs=None
     if pk_eff.shape[0] != cfg.ppd // 2:
         raise ValueError("halfspace_pack: want pk_eff of every generated plane")
     n, half = cfg.ppd, cfg.ppd // 2
-    out = torch.empty((cfg.narray, 2, 2, half + 1, n, n), dtype=torch.float32,
+    out = torch.empty((cfg.narray, 2, 2, half + 1, n, n), dtype=pk_eff.dtype,
                       device=pk_eff.device)
     kernels.launch_halfspace_pack(
         tables.planes64, tables.mzx64, tables.czx64, pk_eff, coefs, out, n,

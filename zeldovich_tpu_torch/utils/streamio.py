@@ -16,7 +16,7 @@ layout (narray, 2, Y, Z, X), and of the out-of-core streaming loops
   through the background ``AsyncSlabWriter`` and ``OutputWriter``, copies
   of the JAX package's (``AsyncSlabWriter``, ``_chunk_planes`` and
   ``_flush_chunk`` from ``zeldovich_tpu/utils/streamio.py``), so the ic_*
-  bytes are produced by the same code from the same float32 values.
+  bytes are produced by the same code from the same values.
 
 On the CPU both directions are plain host copies.
 """
