@@ -16,6 +16,18 @@ script exits non-zero without printing a result:
    float64 draw kernel may show the 40-byte buffer of the library
    sincos's large-argument path, which ptxas lists beside it); count the
    float64 operations a mode of the float64 draw chain from B5's SASS;
+1b. PLT eigenmode tables generated on the card (ops/lattice.py, torch ops
+   in float64): N = 128, 256 and 512 timed with CUDA events, the Ewald
+   sums and the eigensolve apart, each beside its float64 bound (exp, cos
+   and the division counted from SASS), with the peak device memory; the
+   128 table held to zeldovich_tpu/assets/eigmodes128 under
+   lattice.check_table's rules and made twice for the same bytes; the 512
+   table written by scripts/torch_generate_eigmodes.py (the same bytes as
+   in this process) and run: the 512^3 PLT half step in float32 and
+   float64 on it (the lookup's direct gather), kernels against the plain
+   route, timed beside the step on the shipped 128 table; and the 128^3
+   PLT CLI in float64 on the card's 128 table, particle by particle within
+   1e-10 of the run on the shipped table;
 2. kernel B1 (halfspace_pack_zx) against its plain version on the card, at
    128^3 with example.par's PLT configuration and at 512^3 plain float32;
    and small cases at every n in [16, 2048] (SMALL_N): plain, PLT, fixed
@@ -209,8 +221,9 @@ def par_text(ppd: int, outdir, plt: bool, seed: int = 12346, **extra) -> str:
         InitialConditionsDirectory=f'"{outdir}"',
         ZD_Pk_filename=f'"{ASSETS / "wmap1new.pow"}"',
         ZD_PLT_filename=f'"{ASSETS / "eigmodes128"}"',
-        ZD_qPLT=str(int(plt)), **extra,
+        ZD_qPLT=str(int(plt)),
     )
+    keys.update(extra)
     return "".join(f"{k} = {v}\n" for k, v in keys.items())
 
 
@@ -338,21 +351,24 @@ def phase_card():
     DRAW_F64_OPS = _f64_draw_ops()
 
 
-def _f64_draw_ops() -> int:
-    """float64 operations a mode of the float64 draw chain, from the SASS
-    of B5's float64 kernel (one mode a thread, no loop): every instruction
-    of the float64 pipe (DADD, DMUL, DSETP, DMNMX, the conversions and the
-    MUFU seeds of its divisions and roots) counts one, a multiply-add
-    (DFMA) two."""
+def _sass(binary) -> str:
     from zeldovich_tpu_torch import kernels
 
     cuobjdump = Path(kernels.nvcc_path()).with_name("cuobjdump")
-    out = subprocess.run([str(cuobjdump), "-sass", str(kernels.LIB)],
-                         capture_output=True, text=True, check=True).stdout
+    return subprocess.run([str(cuobjdump), "-sass", str(binary)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def _sass_f64_ops(sass: str, function: str) -> int:
+    """float64 operations in the SASS of the function whose name contains
+    `function` (its code as listed, slow paths that are functions of their
+    own left out): every instruction of the float64 pipe (DADD, DMUL,
+    DSETP, DMNMX, the conversions and the MUFU seeds of divisions and
+    roots) counts one, a multiply-add (DFMA) two."""
     ops, inside = 0, False
-    for line in out.splitlines():
+    for line in sass.splitlines():
         if "Function :" in line:
-            inside = "boxmuller_at_kernelId" in line
+            inside = function in line
         m = re.search(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", line)
         if inside and m:
             op = m.group(1)
@@ -361,9 +377,207 @@ def _f64_draw_ops() -> int:
             elif (op.startswith(("DADD", "DMUL", "DSETP", "DMNMX"))
                   or (op.startswith(("MUFU", "I2F", "F2F")) and "64" in op)):
                 ops += 1
-    check(ops > 0, "no float64 instruction found in B5's float64 kernel")
+    check(ops > 0, f"no float64 instruction found in {function}'s SASS")
+    return ops
+
+
+def _f64_draw_ops() -> int:
+    """float64 operations a mode of the float64 draw chain, from the SASS
+    of B5's float64 kernel (one mode a thread, no loop)."""
+    from zeldovich_tpu_torch import kernels
+
+    ops = _sass_f64_ops(_sass(kernels.LIB), "boxmuller_at_kernelId")
     say(f"  float64 draw chain: {ops} float64 operations a mode (B5's SASS)")
     return ops
+
+
+#: the PLT generator's table sizes timed on the card (phase 1b): 128 the
+#: shipped table's, 512 a PLT user's run size (its direct-gather lookup)
+EIG_N = (128, 256, 512)
+#: float64 operations of a k-point's Ewald sums beside the library
+#: functions (exp, cos, division; counted from SASS), a multiply-add as two
+#: and the symmetric tensors' 6 entries: per lattice vector R, k.R (5),
+#: cos - 1 (1) and the 6 products into s(R) (12); per reciprocal vector K,
+#: q = k + K (3), |q|^2 (5), the exponent's and the result's scalings (2),
+#: q_a w (3) and the 6 products q_a w q_b (12); per k-point, the two parts,
+#: the background and 1/(4 pi) (18)
+EWALD_R_OPS, EWALD_K_OPS, EWALD_OPS = 18, 25, 18
+#: bytes a k-point of the eigensolve moves: eps (9 doubles) and k_hat (3)
+#: read, the vector and its eigenvalue (4) written; a closed-form 3x3
+#: eigensolve with the vector choice is ~350 float64 operations, under the
+#: 1280 whose time at F64_OPS would outlast these bytes' at HBM_BPS
+EIG_BYTES = 8 * (9 + 3 + 4)
+#: three library functions in double, one a kernel, for their SASS
+LIBM_PROBE = r"""
+extern "C" __global__ void probe_exp(double* x) { x[threadIdx.x] = exp(x[threadIdx.x]); }
+extern "C" __global__ void probe_cos(double* x) { x[threadIdx.x] = cos(x[threadIdx.x]); }
+extern "C" __global__ void probe_div(double* x, const double* y) {
+  x[threadIdx.x] = x[threadIdx.x] / y[threadIdx.x];
+}
+"""
+
+
+def _libm_f64_ops() -> dict:
+    """float64 operations of exp, cos and a division in double, from the
+    SASS of one probe kernel each (nvcc for sm_90a, as the port's kernels)."""
+    from zeldovich_tpu_torch import kernels
+
+    with tempfile.TemporaryDirectory() as d:
+        cu, cubin = Path(d) / "probe.cu", Path(d) / "probe.cubin"
+        cu.write_text(LIBM_PROBE)
+        subprocess.run([kernels.nvcc_path(), *kernels.ARCH, "-O3", "-cubin",
+                        "-o", str(cubin), str(cu)], check=True, capture_output=True)
+        sass = _sass(cubin)
+    ops = {f: _sass_f64_ops(sass, f"probe_{f}") for f in ("exp", "cos", "div")}
+    say(f"  float64 operations (SASS): exp {ops['exp']}, cos {ops['cos']}, "
+        f"division {ops['div']}")
+    return ops
+
+
+def _time_generator(N: int, ewald_ops: int):
+    """generate_eigmodes_table(N) on the card, timed with CUDA events with
+    its peak device memory; then its plane groups again with the Ewald sums
+    and the eigensolve timed apart, each beside its float64 bound."""
+    import torch
+
+    from zeldovich_tpu_torch.ops import lattice
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    a, b = ev(), ev()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a.record()
+    table = lattice.generate_eigmodes_table(N)
+    b.record()
+    torch.cuda.synchronize()
+    total, peak = a.elapsed_time(b), torch.cuda.max_memory_allocated()
+    ewald = eig = 0.0
+    for _, k, khat in lattice.plane_groups(N):
+        e0, e1, e2 = ev(), ev(), ev()
+        e0.record()
+        eps = lattice.dynamical_matrix(k)
+        e1.record()
+        lattice.growing_mode(eps, khat)
+        e2.record()
+        torch.cuda.synchronize()
+        ewald += e0.elapsed_time(e1)
+        eig += e1.elapsed_time(e2)
+    kpts = N * N * (N // 2 + 1)
+    b_ewald = bound(kpts * 8 * (3 + 9), kpts * ewald_ops, "float64")
+    b_eig = bound(kpts * EIG_BYTES, 0, "float64")
+    b_all = bound(kpts * 8 * 4, kpts * ewald_ops, "float64")
+    say(f"  N = {N} ({kpts} k-points): generator {total:.3f} ms (bound "
+        f"{b_all['bound_ms']:.3f} ms, {b_all['bound_by']}; "
+        f"{100 * b_all['bound_ms'] / total:.2f}%), peak {peak / 2**30:.3f} GiB; "
+        f"Ewald sums {ewald:.3f} ms (bound {b_ewald['bound_ms']:.3f} ms, "
+        f"{b_ewald['bound_by']}; {100 * b_ewald['bound_ms'] / ewald:.2f}%), "
+        f"eigensolve {eig:.3f} ms (bound {b_eig['bound_ms']:.3f} ms, "
+        f"{b_eig['bound_by']}; {100 * b_eig['bound_ms'] / eig:.2f}%), the rest "
+        f"(k vectors, copies to the host) {total - ewald - eig:.3f} ms")
+    return table
+
+
+def _same_bytes(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and np.array_equal(a.view(np.uint64), b.view(np.uint64))
+
+
+def phase_eigmodes():
+    """Phase 1b: PLT eigenmode tables generated on the card, held to the
+    shipped eigmodes128, timed at 128, 256 and 512, written at 512 by the
+    script and run: the 512^3 PLT half step on the 512 table (kernels
+    against the plain route, beside the 128-table step) and the 128^3 PLT
+    CLI on the card's 128 table against the shipped one."""
+    import numpy as np
+
+    from zeldovich_tpu_torch.ops import lattice
+    from zeldovich_tpu_torch.ops.plt import load_eigmodes, save_eigmodes
+
+    say(f"== phase 1b: PLT eigenmode tables on the card, on {smi()}")
+    libm = _libm_f64_ops()
+    nR = len(lattice._real_space_tensor(2.0, 3.6, "cpu")[0])
+    nK = len(lattice._recip_space_tensor(2.0, 4, "cpu"))
+    ewald_ops = (nR * (EWALD_R_OPS + libm["cos"])
+                 + nK * (EWALD_K_OPS + libm["exp"] + libm["div"]) + EWALD_OPS)
+    say(f"  Ewald sums: {nR} lattice and {nK} reciprocal vectors, {ewald_ops} "
+        "float64 operations a k-point")
+    lattice.generate_eigmodes_table(16)  # warm-up: the libraries' handles
+    tables = {N: _time_generator(N, ewald_ops) for N in EIG_N}
+
+    shipped = load_eigmodes(ASSETS / "eigmodes128")
+    eps = np.concatenate([lattice.dynamical_matrix(k).cpu().numpy()
+                          for _, k, _ in lattice.plane_groups(128)])
+    counts = lattice.check_table(tables[128], shipped, eps)
+    say(f"  N = 128 against zeldovich_tpu/assets/eigmodes128: {counts}")
+    check(_same_bytes(lattice.generate_eigmodes_table(128), tables[128]),
+          "a second N = 128 table differs")
+    say("  a second N = 128 table: the same bytes")
+
+    tmp = Path(tempfile.mkdtemp(prefix="zt_eig_"))
+    try:
+        t512, t128 = tmp / "eigmodes512", tmp / "eigmodes128"
+        run = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_generate_eigmodes.py"),
+             "512", str(t512)], capture_output=True, text=True, check=True)
+        say("  " + run.stdout.strip().splitlines()[-1])
+        check(_same_bytes(load_eigmodes(t512), tables.pop(512)),
+              "the script's 512 table differs from this process's")
+        say("  the script's 512 table: the same bytes as this process's")
+        save_eigmodes(t128, tables.pop(128))
+        _plt512_on_table(t512)
+        _plt_cli_on_table(tmp, t128)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _plt512_on_table(table: Path):
+    """The 512^3 PLT half step on a 512 table (the lookup's direct gather),
+    kernels (B1, B2) against the plain route in float32 and float64, timed
+    in turns beside the same step on the shipped 128 table."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
+    from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx_plain
+
+    for dt in (F32, F64):
+        m = model_for(512, True, dt=dt, ZD_PLT_filename=f'"{table}"')
+        check(m.tables.eig.shape[0] == 512, "the model did not load the 512 table")
+        kernels.reset_launches()
+        x = m.xspace_half_pair()
+        torch.cuda.synchronize()
+        _check_launches("512^3 PLT on the 512 table", dict(kernels.launches), HALF)
+        xp = c2r_y_plain(halfspace_pack_zx_plain(m.cfg, m.tables, m.pk_eff, m.plt_coefs),
+                         512)
+        compare(x, xp, tol_for(dt, ROUTE_TOL), f"512^3 PLT {TAG[dt]} step, 512 table")
+        del xp
+        m128 = model_for(512, True, dt=dt)
+        x128 = m128.xspace_half_pair()
+        say(f"  the 128 table's step differs by "
+            f"{((x - x128).abs().max() / x128.abs().max()).item():.3e} * max")
+        del x, x128
+        t512, t128 = _turns(lambda: m.xspace_half_pair(), lambda: m128.xspace_half_pair())
+        say(f"  512^3 PLT {TAG[dt]} step: {t512:.3f} ms on the 512 table, "
+            f"{t128:.3f} ms on the shipped 128 table")
+        del m, m128
+        torch.cuda.empty_cache()
+
+
+def _plt_cli_on_table(tmp: Path, table: Path):
+    """The 128^3 PLT CLI in float64 (doubles out) on the card's 128 table,
+    particle by particle against the run on the shipped table to 1e-10."""
+    from zeldovich_tpu_torch import kernels
+
+    runs = (("eig_shipped", {}), ("eig_card", dict(ZD_PLT_filename=f'"{table}"')))
+    for name, extra in runs:
+        par = _write_par(tmp, name, 128, True, dict(DOUBLES, **extra))
+        say(f"-- {name}: 128^3 PLT f64 on the {'card' if extra else 'shipped'} table")
+        kernels.reset_launches()
+        _run_cli(par)
+        _check_launches(name, dict(kernels.launches), HALF)
+    _same_particles(tmp / "eig_card", tmp / "eig_shipped", 128, "the shipped table's run",
+                    "RVdoubleZel", 1e-10)
 
 
 def phase_kernels(dt="float32"):
@@ -930,8 +1144,8 @@ def _pass1_at(ppd: int, tmp: Path, backing: str):
     (tmp / "m.par").write_text(par_text(ppd, tmp / "ic", False))
     with contextlib.redirect_stderr(io.StringIO()):
         m = OutOfCoreZeldovich(Parameters.from_file(tmp / "m.par"),
-                               slab_bytes=2048 << 20, backing=backing,
-                               device="cuda")
+                               dtype=torch.float32, slab_bytes=2048 << 20,
+                               backing=backing, device="cuda")
     nslab = ppd // m.slab
     _time(lambda: m._pass1_slab(0))  # warm-up
     slab_ms = statistics.median(_time(lambda: m._pass1_slab(y0))
@@ -1348,6 +1562,7 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     phase_card()
+    phase_eigmodes()
     res = {}
     for dt in (F32, F64):
         r = res[dt] = {}

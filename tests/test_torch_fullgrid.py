@@ -123,8 +123,9 @@ def test_xspace_pair_matches_jax(case, dtype):
 
 def test_f_nl_term_is_visible():
     """f_NL = 30 moves x space by far more than the f32 tolerance."""
-    with_fnl = Zeldovich(_param(32, **FNL), device="cpu").xspace_pair().numpy()
-    without = Zeldovich(_param(32, **dict(FNL, ZD_f_NL=0.0)),
+    with_fnl = Zeldovich(_param(32, **FNL), dtype=torch.float32,
+                         device="cpu").xspace_pair().numpy()
+    without = Zeldovich(_param(32, **dict(FNL, ZD_f_NL=0.0)), dtype=torch.float32,
                         device="cpu").xspace_pair().numpy()
     assert np.abs(with_fnl - without).max() > 1e-3 * np.abs(without).max()
 

@@ -93,7 +93,7 @@ def test_b3_plain_matches_pallas_interpret(ppd, case):
 
 
 def test_b3_has_no_plain_route_off_the_cpu():
-    m = Zeldovich(_param(16), device="cpu")
+    m = Zeldovich(_param(16), dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="no kernel"):
         halfspace_pack(m.cfg, m.tables, torch.empty((8, 16, 16), device="meta"))
 
@@ -120,7 +120,8 @@ def test_separate_kernel_half_route(case, dtype):
 
 
 def test_kspace_half_pair_refuses_non_hermitian_configurations():
-    m = Zeldovich(_param(16, ZD_f_NL=10.0, ZD_n_s=0.96, Omega_M=0.3), device="cpu")
+    m = Zeldovich(_param(16, ZD_f_NL=10.0, ZD_n_s=0.96, Omega_M=0.3), dtype=torch.float32,
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="full-grid"):
         m.kspace_half_pair()
 

@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's host modules.
 
-``zeldovich_tpu_torch`` and ``chip_smoke.py`` import nothing of
-``zeldovich_tpu`` (an AST scan of every source file).  The copies
+``zeldovich_tpu_torch``, ``scripts/torch_*.py`` and ``chip_smoke.py``
+import nothing of ``zeldovich_tpu`` (an AST scan of every source file).  The copies
 (parameters, power spectrum, host pcg64 tables, the v1 MT19937 stream,
 the ic_* writer with its native packer, the k-space checkpoint helpers)
 are held against the originals on the same inputs: equal parameters,
@@ -35,7 +35,8 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).parent.parent
 ASSETS = REPO / "zeldovich_tpu" / "assets"
-SOURCES = sorted((REPO / "zeldovich_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = (sorted((REPO / "zeldovich_tpu_torch").rglob("*.py"))
+           + sorted((REPO / "scripts").glob("torch_*.py")) + [REPO / "chip_smoke.py"])
 
 
 def _jax_package_imports(path: Path) -> list:

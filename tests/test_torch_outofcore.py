@@ -116,7 +116,7 @@ def test_b5_plain_matches_pallas_interpret(fixed_power, dtype):
 
 
 def test_b5_has_no_plain_route_off_the_cpu():
-    m = Zeldovich(_param(16), device="cpu")
+    m = Zeldovich(_param(16), dtype=torch.float32, device="cpu")
     i = torch.zeros((4, 16, 16), dtype=torch.int32, device="meta")
     f = torch.empty((4, 16, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -241,7 +241,7 @@ def test_out_of_core_run_matches_jax_in_core(tmp_path, case):
     _jax_in_core(_param(ppd, tmp_path / "jax", **OOC[case]), v1=case == "v1")
     p = _param(ppd, tmp_path / "ooc", **OOC[case])
     row = ppd * ppd * p.narray * 8
-    m = OutOfCoreZeldovich(p, slab_bytes=4 * row, device="cpu")
+    m = OutOfCoreZeldovich(p, dtype=torch.float32, slab_bytes=4 * row, device="cpu")
     assert m.slab == 4  # four y-slabs: generated half, ppd/2, mirror half
     m.run()
     _compare_outputs(tmp_path / "ooc", tmp_path / "jax")
@@ -252,7 +252,7 @@ def test_out_of_core_disk_stage_is_removed(tmp_path, case):
     ppd = 16
     _jax_in_core(_param(ppd, tmp_path / "jax", **OOC[case]))
     p = _param(ppd, tmp_path / "ooc", **OOC[case])
-    m = OutOfCoreZeldovich(p, slab_bytes=ppd * ppd * p.narray * 8 * 8,
+    m = OutOfCoreZeldovich(p, dtype=torch.float32, slab_bytes=ppd * ppd * p.narray * 8 * 8,
                            backing="disk", device="cpu")
     assert m.slab == 8
     m.run()

@@ -18,6 +18,7 @@ from zeldovich_tpu.models.pipeline import Zeldovich as JZeldovich
 from zeldovich_tpu.utils.output import read_particles
 from zeldovich_tpu.utils.params import Parameters
 from zeldovich_tpu_torch.cli import main
+from zeldovich_tpu_torch.models.outofcore import OutOfCoreZeldovich
 from zeldovich_tpu_torch.models.pipeline import Zeldovich
 
 torch.set_num_threads(1)
@@ -59,6 +60,22 @@ def test_xspace_half_pair_matches_jax(tmp_path, plt, dtype, tol):
                     device="cpu").xspace_half_pair().numpy()
     assert got.shape == want.shape == (4 if plt else 2, 2, 32, 32, 32)
     np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("model", [Zeldovich, OutOfCoreZeldovich])
+@pytest.mark.parametrize("step", ["xspace_half_pair", "xspace_pair"])
+def test_models_default_to_the_jax_packages_float64(tmp_path, model, step):
+    """With no dtype, the port's models compute in float64 as the JAX
+    package's Zeldovich(param) does, and agree with it to 1e-12."""
+    p = _param(16, tmp_path, **PLT)
+    want = np.asarray(getattr(JZeldovich(p), step)())
+    m = model(p, device="cpu")
+    assert m.dtype == torch.float64
+    got = getattr(m, step)().numpy()
+    assert got.dtype == want.dtype == np.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    if model is OutOfCoreZeldovich:
+        assert m.stage_layout()[1] == np.float64
 
 
 def test_cli_ic_files_match_jax_run_pair(tmp_path):

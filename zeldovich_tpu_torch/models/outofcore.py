@@ -53,7 +53,7 @@ def _zsel(z0, nz):
 class OutOfCoreZeldovich(Zeldovich):
     """Streamed pipeline with a host-resident (or disk-memmapped) grid."""
 
-    def __init__(self, param, dtype=torch.float32, slab_bytes=2 << 30,
+    def __init__(self, param, dtype=torch.float64, slab_bytes=2 << 30,
                  backing: str = "ram", device="cuda"):
         super().__init__(param, dtype=dtype, device=device)
         if backing not in ("ram", "disk"):

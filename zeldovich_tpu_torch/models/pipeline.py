@@ -55,7 +55,7 @@ def phi_nl(phi, f_NL: float, inv_n3: float):
 class Zeldovich:
     """Parameters -> displacement/velocity fields on ``device``."""
 
-    def __init__(self, param: Parameters, dtype=torch.float32, device="cuda"):
+    def __init__(self, param: Parameters, dtype=torch.float64, device="cuda"):
         self.param = param
         self.dtype = dtype
         self.device = torch.device(device)

@@ -3,7 +3,9 @@
 Port of ``zeldovich_tpu/ops/plt.py`` (whose module imports jax): the
 reference get_eigenmode/interp_eigmode (src/zeldovich.cpp:149-276) as
 vectorized gathers, with the JAX package's order of evaluation so float32
-results agree to a few ulp and float64 results to rounding.
+results agree to a few ulp and float64 results to rounding.  Tables come
+from the reference's ``eigmodes128`` or from
+``ops/lattice.py::generate_eigmodes_table`` at any size.
 """
 
 from __future__ import annotations
@@ -28,6 +30,19 @@ def load_eigmodes(path) -> np.ndarray:
     return np.frombuffer(raw[4:], dtype="<f8").reshape(
         ppd_e, ppd_e, ppd_e // 2 + 1, 4
     )
+
+
+def save_eigmodes(path, table):
+    """Write a table (numpy array or tensor) in the reference binary format:
+    a ``<i4`` ppd_e, then the ``<f8`` data."""
+    if isinstance(table, torch.Tensor):
+        table = table.detach().cpu().numpy()
+    ppd_e = table.shape[0]
+    if table.shape != (ppd_e, ppd_e, ppd_e // 2 + 1, 4):
+        raise ValueError(f"eigenmode table of shape {table.shape}")
+    with open(path, "wb") as fp:
+        np.array([ppd_e], dtype="<i4").tofile(fp)
+        np.ascontiguousarray(table, dtype="<f8").tofile(fp)
 
 
 def _interp_eigmode(ikx, iky, ikz, ppd: int, table, fdt):
