@@ -91,7 +91,23 @@ script exits non-zero without printing a result:
    plain route, --dtype df64 against the first, 128^3 ZD_Version=1,
    256^3 plain in core, by
    the separate-kernel route and --out-of-core, --part 1 then --part 2 at
-   128^3, and --part 2 alone on a complex128 (narray, Y, Z, X) checkpoint.
+   128^3, and --part 2 alone on a complex128 (narray, Y, Z, X) checkpoint;
+11. ppd that no FFT kernel takes (phase_sizes): B3, B4 and B5 with the
+   matrix-product DFTs of ops/mmfft.py.  A 576 PLT table made on the card;
+   at 576^3 in float64 and float32: B3 (plain and PLT), B4 and B5 (three
+   slabs) against their plain versions with times and bounds, the separate
+   half step plain and PLT against the plain route with its launches (B3
+   alone), its time and peak, zx_mm and c2r_y_pair against complex128
+   torch.fft with their times beside torch.fft's and their operation
+   bounds, the float32 step against the float64 one; the 576^3 f_NL
+   float64 full step against the plain route; the 1152^3 float32 half step
+   in core (launches, finite, time, peak); at 1728^3 and 4096^3 one
+   out-of-core slab of each pass against the plain route; the CLI at 576^3
+   in float64 with no --dtype, plain and PLT against the plain route
+   particle by particle, then --out-of-core against the in-core run.  At
+   ppd 2, 8 and 12 (SIZES_SMALL) in both types: B3, B4 and B5 against
+   their plain versions and the separate half step, plain and PLT, against
+   the plain route with its launches.
 
 Phases 2 to 8 run twice, in float32 and in float64 (the double instances
 of every kernel: against the plain versions to 1e-12 of the largest value
@@ -133,6 +149,11 @@ ASSETS = ROOT / "zeldovich_tpu" / "assets"
 B1_TOL, B2_TOL, ZERO_TOL, PARTICLE_TOL = 1e-5, 2e-6, 1e-6, 1e-5
 B4_TOL, DFT_TOL = 1e-5, 1e-5
 B5_TOL, B3_TOL, ROUTE_TOL = 1e-5, 1e-5, 1e-5
+#: the 576^3 float32 half step against the float64 one: their draws differ
+#: (float32 uniforms carry 32 bits), so this is no kernel's error; it read
+#: 8.125e-6 of the largest value on every run that got there, and the
+#: limit leaves room above that for another draw or cuBLAS algorithm
+F32_VS_F64_TOL = 3e-5
 #: float64: every kernel and route against its plain version, the zeros
 #: and the particles, all relative to the largest value
 F64_TOL = 1e-12
@@ -141,6 +162,9 @@ F64_TOL = 1e-12
 #: vector peaks (no tensor cores); a kernel's bound is the larger of its
 #: bytes and its operations over these
 HBM_BPS, F32_OPS, F64_OPS = 3.35e12, 67e12, 33.5e12
+#: the FP64 tensor-core peak of the same data sheet: the bound of the
+#: float64 matrix products (cuBLAS runs DGEMM on the tensor cores)
+F64_TC_OPS = 67e12
 #: 32-bit operations a mode of the draw kernels (B1, B3-B5): the pcg64
 #: jump (one 128-bit multiply-add), two XSL-RR draws and Box-Muller
 DRAW_OPS = 100
@@ -258,7 +282,8 @@ def compare(k, p, tol, what):
     zk = (k[p == 0].abs().max().item() if (p == 0).any() else 0.0)
     zp = (p[k == 0].abs().max().item() if (k == 0).any() else 0.0)
     finite = bool(torch.isfinite(k).all())
-    say(f"  {what}: max|k-p| = {err:.3e} = {err / scale:.3e} * max|p| "
+    rel = err / scale if scale else (math.inf if err else 0.0)  # ppd 2: all zero
+    say(f"  {what}: max|k-p| = {err:.3e} = {rel:.3e} * max|p| "
         f"(tol {tol:g}); zeros {zk:.1e}/{zp:.1e} of {scale:.3e}")
     check(finite, f"{what}: non-finite kernel output")
     check(err <= tol * scale, f"{what}: kernel disagrees with plain")
@@ -877,7 +902,7 @@ def _time(fn, reps=5):
     return a.elapsed_time(b) / reps
 
 
-def _turns(kernel_fn, plain_fn, rounds=3, library=None):
+def _turns(kernel_fn, plain_fn, rounds=3, library=None, reps=5):
     """Medians over rounds of plain, kernel, kernel, plain (after warm-up),
     and of the library call's where one is given (then a third entry)."""
     import statistics
@@ -885,24 +910,24 @@ def _turns(kernel_fn, plain_fn, rounds=3, library=None):
     kernel_fn(), plain_fn()
     ks, ps, ls = [], [], []
     for _ in range(rounds):
-        ps.append(_time(plain_fn))
-        ks.append(_time(kernel_fn))
-        ks.append(_time(kernel_fn))
-        ps.append(_time(plain_fn))
+        ps.append(_time(plain_fn, reps))
+        ks.append(_time(kernel_fn, reps))
+        ks.append(_time(kernel_fn, reps))
+        ps.append(_time(plain_fn, reps))
         if library is not None:
-            ls.append(_time(library))
+            ls.append(_time(library, reps))
     out = statistics.median(ks), statistics.median(ps)
     return out if library is None else (*out, statistics.median(ls))
 
 
-def _peak(step, ppd, what):
+def _peak(step, ppd, what, reps=5):
     """Median ms of 3 kernel-route steps and the peak device memory."""
     import torch
 
-    _time(step)  # warm-up
+    _time(step, reps)  # warm-up
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms = sorted(_time(step) for _ in range(3))[1]
+    ms = sorted(_time(step, reps) for _ in range(3))[1]
     peak = torch.cuda.max_memory_allocated()
     say(f"  {what}: kernel {ms:.3f} ms ({ppd**3 / ms / 1e3:.1f} Mpart/s), peak "
         f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB of setup fields)")
@@ -1339,7 +1364,7 @@ def _ic_files(d: Path, ppd: int, cpd: int, fmt="RVZel"):
 
 
 def _against_plain(tmp: Path, name: str, par: Path, x_plain, fmt="RVZel",
-                   tol=PARTICLE_TOL):
+                   tol=PARTICLE_TOL, ppd=128):
     """Every particle of run `name` against x_plain through the same writer."""
     from zeldovich_tpu_torch.models.pipeline import OutputWriter, Parameters
     from zeldovich_tpu_torch.utils.streamio import stream_xspace
@@ -1351,7 +1376,7 @@ def _against_plain(tmp: Path, name: str, par: Path, x_plain, fmt="RVZel",
     writer = OutputWriter(param)
     with contextlib.redirect_stderr(io.StringIO()):
         stream_xspace(x_plain, writer)
-    _same_particles(tmp / name, tmp / f"{name}_plain", 128, "plain", fmt, tol)
+    _same_particles(tmp / name, tmp / f"{name}_plain", ppd, "plain", fmt, tol)
 
 
 def _same_particles(got_dir: Path, want_dir: Path, ppd: int, what: str, fmt="RVZel",
@@ -1549,6 +1574,482 @@ def phase_end_to_end():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: the ppd of phase 11: not powers of two, so no FFT kernel takes them
+#: (ROADMAP A12): B3, B4 and B5 with the matrix-product DFTs of
+#: ops/mmfft.py.  576 = 2^6 3^2, 1152 = 2^7 3^2 (the half step in core in
+#: float32), 1728 = 2^6 3^3 (AbacusSummit's small boxes) and 4096 (above
+#: the kernels' 2048) out of core, a slab of each pass
+SIZES_N = 576
+SIZES_OOC = (1728, 4096)
+#: ppd below the FFT kernels' 16 that the JAX package's tests run (8, 12)
+#: and the least even one: B3, B4, B5 and the half step there
+SIZES_SMALL = (2, 8, 12)
+MM = ("halfspace_pack",)  # the kernels of a half step at those sizes
+
+
+def _kernel_and_plain_ms(kernel_fn, plain_fn):
+    """The kernel's ms (the median of 3 runs of 10 launches) and its plain
+    version's (one call: they take ~100-300 ms at 576^3)."""
+    import statistics
+
+    kernel_fn()
+    return statistics.median(_time(kernel_fn, 10) for _ in range(3)), _time(plain_fn, 1)
+
+
+def _sizes_kernels(m, mp, dt):
+    """B3, B4 and B5 at 576^3 against their plain versions, each timed
+    with its bound; returns {name: (err, (ms, plain_ms, None, bound))}."""
+    import torch
+
+    from zeldovich_tpu_torch.ops.boxmuller import (
+        boxmuller, boxmuller_plain, halfspace_boxmuller, halfspace_boxmuller_plain,
+    )
+    from zeldovich_tpu_torch.ops.modes_real import (
+        draw_operands, pack_half_raw, slab_chunk, slab_modes,
+    )
+    from zeldovich_tpu_torch.ops.synth import halfspace_pack
+
+    n, f, dtype, out = SIZES_N, TAG[dt], getattr(torch, dt), {}
+    tb, half = m.tables, n // 2
+    for mm, what in ((m, "plain"), (mp, "PLT")):
+        a = (mm.cfg, mm.tables, mm.pk_eff, mm.plt_coefs)
+        k = counted("halfspace_pack", lambda: halfspace_pack(*a))
+        p = pack_half_raw(mm.cfg, mm.tables, dtype, mm.pk_eff, mm.plt_coefs)
+        if dt == F64:  # bit-equal draws: the same zeros
+            _same_zeros(k, p, f"B3 {n}^3 {what} {f}")
+        # float32: a packing is a sum of two products of the deviate, whose
+        # fast draws round apart from the plain version's by an ulp; at
+        # 576^3 PLT two of 1.5e9 packings cancel to exactly 0 in one and to
+        # 1e-13 in the other, so the zeros are held to ZERO_TOL (compare)
+        e = compare(k, p, tol_for(dt, B3_TOL), f"B3 {n}^3 {what} {f} {tuple(k.shape)}")
+        del k, p
+        if mm is m:
+            t = _kernel_and_plain_ms(
+                lambda: halfspace_pack(*a),
+                lambda: pack_half_raw(m.cfg, m.tables, dtype, m.pk_eff, None))
+            out["halfspace_pack"] = (e, (*t, None, bound(
+                nbytes(m.pk_eff, tb.planes64, tb.mzx64, tb.czx64)
+                + m.cfg.narray * 4 * (half + 1) * n * n * m.pk_eff.element_size(),
+                0, dt, draws=half * n * n)))
+    a = (m.tables, m.pk_eff, False)
+    k = counted("halfspace_boxmuller", lambda: halfspace_boxmuller(*a))
+    e = _b4_compare(k, halfspace_boxmuller_plain(*a), f"B4 {n}^3 {f}")
+    del k
+    t = _kernel_and_plain_ms(lambda: halfspace_boxmuller(*a),
+                             lambda: halfspace_boxmuller_plain(*a))
+    out["halfspace_boxmuller"] = (e, (*t, None, _b4_bound(m.tables, m.pk_eff)))
+    rows, err = slab_chunk(n, n), 0.0
+    for y0 in (0, half - rows // 2, n - rows):  # generated half, across ppd/2, mirror
+        ops = draw_operands(slab_modes(y0, y0 + rows, n, "cuda"), m.cfg, tb, dtype)
+        k = counted("boxmuller", lambda: boxmuller(tb, *ops, False))
+        p = boxmuller_plain(tb, *ops, False)
+        for j, part in enumerate(("re", "im")):
+            what = f"B5 {n}^3 {f} y0={y0} D_{part}"
+            _same_zeros(k[j], p[j], what)
+            err = max(err, compare(k[j], p[j], tol_for(dt, B5_TOL),
+                                   f"{what} {tuple(k[j].shape)}"))
+        del k, p
+        if y0 == 0:
+            t = _kernel_and_plain_ms(lambda: boxmuller(tb, *ops, False),
+                                     lambda: boxmuller_plain(tb, *ops, False))
+            b5 = (*t, None, bound(nbytes(*ops, tb.planes64, tb.mzx64, tb.czx64)
+                                  + 2 * nbytes(ops[3]), 0, dt, draws=ops[0].numel()))
+        del ops
+    out["boxmuller"] = (err, b5)
+    for name, (e, (k_ms, p_ms, _, b)) in out.items():
+        say(f"  {name} {n}^3 {f}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']}), {100 * b['bound_ms'] / k_ms:.1f}% of it")
+    return out
+
+
+def _sizes_small():
+    """B3, B4 and B5 (over the whole grid) against their plain versions,
+    and the separate half step, plain and PLT, against the plain route
+    with its launches (B3 alone), at each ppd of SIZES_SMALL in both
+    types."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.ops.boxmuller import (
+        boxmuller, boxmuller_plain, halfspace_boxmuller, halfspace_boxmuller_plain,
+    )
+    from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
+    from zeldovich_tpu_torch.ops.modes_real import (
+        draw_operands, pack_half_raw, slab_modes,
+    )
+    from zeldovich_tpu_torch.ops.synth import halfspace_pack, halfspace_pack_zx_plain
+
+    say(f"== phase 11: ppd {', '.join(map(str, SIZES_SMALL))}, B3/B4/B5 and the "
+        "separate half step")
+    for n in SIZES_SMALL:
+        for dt in (F32, F64):
+            f, dtype = TAG[dt], getattr(torch, dt)
+            m = model_for(n, False, dt=dt)
+            for mm, what in ((m, "plain"), (model_for(n, True, dt=dt), "PLT")):
+                a = (mm.cfg, mm.tables, mm.pk_eff, mm.plt_coefs)
+                k = counted("halfspace_pack", lambda: halfspace_pack(*a))
+                p = pack_half_raw(mm.cfg, mm.tables, dtype, mm.pk_eff, mm.plt_coefs)
+                if dt == F64:
+                    _same_zeros(k, p, f"B3 {n}^3 {what} {f}")
+                compare(k, p, tol_for(dt, B3_TOL), f"B3 {n}^3 {what} {f} {tuple(k.shape)}")
+                xp = c2r_y_plain(halfspace_pack_zx_plain(*a), n)
+                kernels.reset_launches()
+                x = mm.xspace_half_pair()
+                torch.cuda.synchronize()
+                _check_launches(f"{n}^3 {what} {f} half step", dict(kernels.launches), MM)
+                compare(x, xp, tol_for(dt, ROUTE_TOL),
+                        f"{n}^3 {what} {f} separate step vs plain route")
+            a = (m.tables, m.pk_eff, False)
+            _b4_compare(counted("halfspace_boxmuller", lambda: halfspace_boxmuller(*a)),
+                        halfspace_boxmuller_plain(*a), f"B4 {n}^3 {f}")
+            ops = draw_operands(slab_modes(0, n, n, m.device), m.cfg, m.tables, dtype)
+            k = counted("boxmuller", lambda: boxmuller(m.tables, *ops, False))
+            p = boxmuller_plain(m.tables, *ops, False)
+            for j, part in enumerate(("re", "im")):
+                _same_zeros(k[j], p[j], f"B5 {n}^3 {f} D_{part}")
+                compare(k[j], p[j], tol_for(dt, B5_TOL),
+                        f"B5 {n}^3 {f} D_{part} {tuple(k[j].shape)}")
+
+
+def _mm_flops(n: int, elems: int, dtype) -> float:
+    """Real operations of the matrix-product DFT of length n on `elems`
+    complex elements: three real products of 2 n operations an output
+    (dense), or of 2 n1 and 2 n2 and the twiddle's 6 (four-step)."""
+    from zeldovich_tpu_torch.ops import mmfft
+
+    if mmfft._dense_takes(n, dtype):
+        return 6.0 * n * elems
+    n1, n2 = mmfft._factor(n)
+    return (6.0 * (n1 + n2) + 6.0) * elems
+
+
+def _sizes_products(m, dt, spm64):
+    """The matrix products of the 576^3 half step (zx_mm on the packed
+    spectrum, c2r_y_pair) against complex128 torch.fft on the float64
+    spectrum, each timed beside torch.fft on the same shape; returns the
+    readings."""
+    import torch
+
+    from zeldovich_tpu_torch.ops import mmfft
+    from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
+    from zeldovich_tpu_torch.ops.fft import zx_dft_plain
+
+    n, f = SIZES_N, TAG[dt]
+    spm = spm64.to(getattr(torch, dt))
+    tol = tol_for(dt, DFT_TOL)
+    # the complex128 results rounded once to dt: compare's zeros are
+    # then held at dt's grade
+    g = mmfft.zx_mm(spm, +1)
+    g64 = zx_dft_plain(spm64, +1)
+    e_zx = compare(g, g64.to(g.dtype), tol,
+                   f"zx_mm {f} vs complex128 torch.fft {tuple(g.shape)}")
+    x = mmfft.c2r_y_pair(g)
+    del spm
+    x64 = c2r_y_plain(g64, n)
+    e_c2r = compare(x, x64.to(x.dtype), tol, f"c2r_y_pair {f} vs complex128 torch.fft")
+    del x64, g64, x
+    r = _product_times(g, f"{n}^3 {f} {tuple(g.shape)}")
+    r.update(zx_err=e_zx, c2r_err=e_c2r)
+    del g
+    torch.cuda.empty_cache()
+    return r
+
+
+def _product_times(g, what, c2r_rows=None):
+    """The matrix products of a half step on the z/x-transformed spectrum g
+    (zx_mm in place on it; c2r_y_pair into a buffer, on its first c2r_rows
+    z rows when given), each timed with its bound, then torch.fft on the
+    same shapes, the buffer freed first (torch.fft.irfft along y holds a
+    transposed copy, a copy for cuFFT and its output: at 1152^3 one array's
+    spectrum is 12.2 GB); returns the readings."""
+    import torch
+
+    from zeldovich_tpu_torch.ops import mmfft
+
+    n, dt = 2 * (g.shape[-3] - 1), _dt_of(g)
+    zx_ms = _time(lambda: mmfft.zx_mm(g, +1, g), reps=2)
+    c = torch.complex(g[:, :, 0], g[:, :, 1])
+    zx_lib = _time(lambda: torch.fft.ifftn(c, dim=(-2, -1), norm="forward"), reps=2)
+    del c
+    zx_moved = 2 * nbytes(g)
+    zx_flops = 2 * _mm_flops(n, g.numel() // 2, g.dtype)
+    if c2r_rows is not None:
+        g = g[..., :c2r_rows, :].contiguous()
+    x = mmfft.c2r_y_pair(g)
+    c2r_ms = _time(lambda: mmfft.c2r_y_pair(g, x), reps=2)
+    rate = F32_OPS if dt == F32 else F64_TC_OPS
+    flops = {"zx": zx_flops,
+             "c2r": (2.0 * (2 * (n // 2 + 1)) * x.numel() if mmfft._dense_takes(n, g.dtype)
+                     else _mm_flops(n, x.numel() // 2, g.dtype))}
+    # the bound: operations at the type's matmul peak, or the bytes (the
+    # operand read once, the result written once) at 3.35 TB/s
+    moved = {"zx": zx_moved, "c2r": nbytes(g, x)}
+    del x
+    torch.cuda.empty_cache()
+    c = torch.complex(g[:, :, 0], g[:, :, 1])
+    c2r_lib = _time(lambda: torch.fft.irfft(c, n=n, dim=-3, norm="forward"), reps=2)
+    del c, g
+    torch.cuda.empty_cache()
+    r = {"zx_ms": zx_ms, "zx_torch_fft_ms": zx_lib, "c2r_ms": c2r_ms,
+         "c2r_torch_fft_ms": c2r_lib}
+    for k in ("zx", "c2r"):
+        tb, to = 1e3 * moved[k] / HBM_BPS, 1e3 * flops[k] / rate
+        r[f"{k}_bound_ms"] = max(tb, to)
+        r[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
+    say(f"  {what} products: zx_mm {zx_ms:.3f} ms (torch.fft ifftn {zx_lib:.3f} ms, bound "
+        f"{r['zx_bound_ms']:.3f} ms by {r['zx_bound_by']}), c2r_y_pair"
+        + ("" if c2r_rows is None else f" on {c2r_rows} z rows")
+        + f" {c2r_ms:.3f} ms (torch.fft irfft {c2r_lib:.3f} ms, bound "
+        f"{r['c2r_bound_ms']:.3f} ms by {r['c2r_bound_by']}), DENSE_MAX "
+        f"{mmfft.DENSE_MAX[getattr(torch, dt)]}")
+    return r
+
+
+def _sizes_half_step(dt, table: Path):
+    """Phase 11 at 576^3 in dt: B3, B4 and B5 against their plain versions,
+    the separate half step (B3, the ky=0 fixup, the matrix products) plain
+    and PLT against the plain route with its launches, the products against
+    complex128 torch.fft, times and the peak; returns (kernel readings,
+    step readings, the plain step's output on the host).  The plain route
+    runs first and alone: at 576^3 PLT float64 it peaks near 50 GB."""
+    import statistics
+
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
+    from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx_plain
+
+    n, f = SIZES_N, TAG[dt]
+    say(f"== phase 11: {n}^3 {f}, B3/B4/B5 and the separate half step")
+    m = model_for(n, False, dt=dt)
+    mp = model_for(n, True, dt=dt, ZD_PLT_filename=f'"{table}"')
+    check(mp.tables.eig.shape[0] == n, f"the model did not load the {n} table")
+    kern = _sizes_kernels(m, mp, dt)
+    step = {}
+    for mm, what in ((m, "plain"), (mp, "PLT")):
+        def plain(mm=mm):
+            return c2r_y_plain(halfspace_pack_zx_plain(mm.cfg, mm.tables, mm.pk_eff,
+                                                       mm.plt_coefs), n)
+
+        torch.cuda.empty_cache()
+        xp = plain()
+        kernels.reset_launches()
+        x = mm.xspace_half_pair()
+        torch.cuda.synchronize()
+        _check_launches(f"{n}^3 {what} {f} half step", dict(kernels.launches), MM)
+        step[f"{what}_err"] = compare(x, xp, tol_for(dt, ROUTE_TOL),
+                                      f"{n}^3 {what} {f} separate step vs plain route")
+        del xp
+        if mm is m:
+            keep = x.cpu()
+        del x
+        torch.cuda.empty_cache()
+        ms = statistics.median(_time(lambda: mm.xspace_half_pair(), 2) for _ in range(3))
+        step[f"{what}_ms"] = ms
+        say(f"  {n}^3 {what} {f} step: separate route {ms:.3f} ms"
+            + (f", plain route {_time(plain, 1):.3f} ms" if mm is m else ""))
+    del mp
+    torch.cuda.empty_cache()
+    step["ms"], step["peak"] = _peak(lambda: m.xspace_half_pair(), n,
+                                     f"{n}^3 plain {f} separate step", reps=2)
+    spm64 = (m if dt == F64 else model_for(n, False, dt=F64)).kspace_half_pair()
+    step.update(_sizes_products(m, dt, spm64))
+    del spm64, m
+    torch.cuda.empty_cache()
+    return kern, step, keep
+
+
+def _sizes_fnl():
+    """The 576^3 f_NL full-grid step in float64 (B4, the matrix products
+    over y, z, x, the phi pass) against the plain route."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+
+    n = SIZES_N
+    say(f"== phase 11: {n}^3 f_NL f64 full-grid step")
+    m = model_for(n, False, dt=F64, **FNL)
+    _ = m.pk_eff
+    kernels.reset_launches()
+    x = m.xspace_pair()
+    torch.cuda.synchronize()
+    _check_launches(f"{n}^3 f_NL f64 step", dict(kernels.launches), ("halfspace_boxmuller",))
+    compare(x, m.xspace_pair(plain=True), F64_TOL, f"{n}^3 f_NL f64 step vs plain route")
+    del x
+    t = _turns(lambda: m.xspace_pair(), lambda: m.xspace_pair(plain=True), rounds=1,
+               reps=1)
+    say(f"  {n}^3 f_NL f64 step: matrix-product route {t[0]:.3f} ms, plain route "
+        f"{t[1]:.3f} ms")
+    _peak(lambda: m.xspace_pair(), n, f"{n}^3 f_NL f64 step", reps=1)
+    del m
+    torch.cuda.empty_cache()
+    return t
+
+
+def _sizes_1152():
+    """The 1152^3 float32 half step in core: its launches, time and peak."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.ops.mmfft import dft_zx
+
+    say("== phase 11: 1152^3 f32 half step in core")
+    m = model_for(1152, False, dt=F32)
+    _ = m.pk_eff
+    kernels.reset_launches()
+    x = m.xspace_half_pair()
+    torch.cuda.synchronize()
+    _check_launches("1152^3 f32 half step", dict(kernels.launches), MM)
+    check(x.shape == (2, 2, 1152, 1152, 1152) and bool(torch.isfinite(x).all()),
+          "1152^3: non-finite or misshapen step output")
+    del x
+    ms, peak = _peak(lambda: m.xspace_half_pair(), 1152, "1152^3 plain f32 separate step",
+                     reps=1)
+    # the products on one array's packed spectrum (a step runs them on each
+    # of the narray arrays), the c2r on half its z rows, beside torch.fft on
+    # the same shapes (torch.fft.irfft on the whole would not fit)
+    g = m.kspace_half_pair()[:1].clone()
+    del m
+    torch.cuda.empty_cache()
+    products = _product_times(dft_zx(g, +1, g), "1152^3 f32, one array's", c2r_rows=576)
+    del g
+    torch.cuda.empty_cache()
+    return ms, peak, products
+
+
+def _sizes_ooc(ppd: int):
+    """One out-of-core slab of each pass at ppd (float32, the CLI's 2048 MB
+    slabs): pass 1's y-slab (B5, fields, the z/x products) and pass 2's
+    z-slab (the y product) against the plain route, timed."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.ops.fft import y_dft_plain, zx_dft_plain
+    from zeldovich_tpu_torch.ops.mmfft import dft_y, dft_zx
+    from zeldovich_tpu_torch.ops.modes_real import synthesize_pair
+
+    say(f"== phase 11: {ppd}^3 f32 out-of-core slabs")
+    m = model_for(ppd, False)
+    rows = 2048 * 2**20 // (ppd * ppd * m.cfg.narray * 8)
+    while ppd % rows:
+        rows -= 1
+    cfg, tb, y0 = m.cfg, m.tables, ppd // 2 - rows // 2  # the slab across ppd/2
+    kernel = lambda: dft_zx(synthesize_pair(y0, rows, cfg, tb, torch.float32), +1)
+    plain = lambda: zx_dft_plain(
+        synthesize_pair(y0, rows, cfg, tb, torch.float32, plain=True), +1)
+    before = kernels.launches["boxmuller"]
+    k = kernel()
+    check(kernels.launches["boxmuller"] > before, f"{ppd}^3 pass-1 slab: B5 not launched")
+    e1 = compare(k, plain(), ROUTE_TOL,
+                 f"{ppd}^3 pass-1 y-slab ({cfg.narray}, 2, {rows}, {ppd}, {ppd})")
+    del k
+    t1 = _turns(kernel, plain, rounds=1, reps=2)
+    del m, cfg, tb
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(ppd)
+    z = torch.randn((2, 2, ppd, rows, ppd), device="cuda", generator=gen)
+    e2 = compare(dft_y(z, +1), y_dft_plain(z, +1), DFT_TOL,
+                 f"{ppd}^3 pass-2 z-slab y product {tuple(z.shape)}")
+    t2 = _turns(lambda: dft_y(z, +1), lambda: y_dft_plain(z, +1), rounds=1, reps=2)
+    say(f"  {ppd}^3 slabs of {rows}: pass 1 (B5 + fields + z/x products) {t1[0]:.3f} ms, "
+        f"plain {t1[1]:.3f} ms; pass 2 (y product) {t2[0]:.3f} ms, torch.fft {t2[1]:.3f} ms")
+    del z
+    torch.cuda.empty_cache()
+    return {"rows": rows, "pass1_ms": t1, "pass2_ms": t2, "errs": (e1, e2)}
+
+
+def _sizes_cli(tmp: Path, table: Path):
+    """The CLI at 576^3 in float64 (no --dtype): plain, PLT on the card's
+    576 table (held against the plain route particle by particle), then
+    --out-of-core (held against the in-core plain run); each launches B3
+    (out of core B5) and no other kernel.  Returns the launches over the
+    three runs."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
+    from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx_plain
+
+    n, total = SIZES_N, {k: 0 for k in kernels.launches}
+    runs = (("sizes_plain", False, {}, [], MM),
+            ("sizes_plt", True, dict(ZD_PLT_filename=f'"{table}"'), [], MM),
+            ("sizes_ooc", False, {}, OOC_FLAGS, ("boxmuller",)))
+    for name, plt, extra, flags, want in runs:
+        par = _write_par(tmp, name, n, plt, extra)
+        say(f"-- {name}: {n}^3 {'PLT' if plt else 'plain'} f64 {' '.join(flags)}")
+        kernels.reset_launches()
+        _run_cli(par, *flags)
+        launches = dict(kernels.launches)
+        _check_launches(name, launches, want)
+        for k, v in launches.items():
+            total[k] += v
+        if name == "sizes_ooc":
+            _same_particles(tmp / name, tmp / "sizes_plain", n, "the in-core run")
+        elif plt:
+            m = model_for(n, True, dt=F64, **extra)
+            x = c2r_y_plain(halfspace_pack_zx_plain(m.cfg, m.tables, m.pk_eff,
+                                                    m.plt_coefs), n)
+            del m
+            _against_plain(tmp, name, par, x, ppd=n)
+            del x
+            for d in (name, f"{name}_plain"):
+                shutil.rmtree(tmp / d)
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_sizes():
+    """Phase 11: ppd that the FFT kernels do not take, on the JAX package's
+    route there (B3, B4, B5 and the matrix-product DFTs of ops/mmfft.py)."""
+    import torch
+
+    from zeldovich_tpu_torch.ops import lattice
+    from zeldovich_tpu_torch.ops.plt import save_eigmodes
+
+    say(f"== phase 11: ppd the FFT kernels do not take, on {smi()}")
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="zt_sizes_"))
+    res = {"kernels": {}, "steps": {}}
+    try:
+        table = tmp / f"eigmodes{SIZES_N}"
+        t = time.perf_counter()
+        save_eigmodes(table, lattice.generate_eigmodes_table(SIZES_N))
+        say(f"  the {SIZES_N} PLT table on the card: {time.perf_counter() - t:.3f} s")
+        x64 = None
+        for dt in (F64, F32):
+            kern, step, x = _sizes_half_step(dt, table)
+            res["kernels"][dt], res["steps"][dt] = kern, step
+            if dt == F64:
+                x64 = x
+            else:
+                # float32 draws are not float64's (their uniforms carry 32
+                # bits), so values alone: no zero pattern is shared
+                x, ref = x.cuda().double(), x64.cuda()
+                err = ((x - ref).abs().max() / ref.abs().max()).item()
+                say(f"  {SIZES_N}^3 plain step f32 vs f64: max|f32-f64| = {err:.3e} "
+                    f"* max (tol {F32_VS_F64_TOL:g})")
+                check(err <= F32_VS_F64_TOL, "the float32 step strays from the float64 one")
+                res["f32_vs_f64"] = err
+                del ref
+            del x
+        del x64
+        torch.cuda.empty_cache()
+        say(f"  phase 11 at {time.perf_counter() - t0:.1f} s")
+        res["fnl_ms"] = _sizes_fnl()
+        res["ms_1152"], res["peak_1152"], res["products_1152"] = _sizes_1152()
+        res["ooc"] = {ppd: _sizes_ooc(ppd) for ppd in SIZES_OOC}
+        _sizes_small()
+        say(f"  phase 11 at {time.perf_counter() - t0:.1f} s")
+        res["launches"] = _sizes_cli(tmp, table)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"sizes": {k: v for k, v in res.items() if k != "kernels"}},
+                   default=str))
+    return res
+
+
 def main() -> int:
     if not (ROOT / "zeldovich_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1574,15 +2075,22 @@ def main() -> int:
         r["b3_err"], r["b3_ms"] = phase_b3(dt)
     phase_outofcore()
     launches = phase_end_to_end()
+    sizes = phase_sizes()
     card = smi()
 
     def entry(dt, name, source, replaces, err, ms, **more):
         kernel_ms, plain_ms, library_ms, b = ms
         stem = source.removesuffix(".cu") + ("_f64.cu" if dt == F64 else ".cu")
+        at = sizes["kernels"][dt].get(name)
+        if at is not None:  # B3, B4, B5 at 576^3 as well
+            more[f"at_{SIZES_N}"] = {"max_abs_err": at[0], "ms": at[1][0],
+                                     "plain_ms": at[1][1], **at[1][3]}
         return {"name": name, "dtype": dt, "route": "cuda",
                 "source": f"zeldovich_tpu_torch/csrc/{stem}",
                 "templates": f"zeldovich_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[dt][name],
+                # phase 11's CLI runs are float64: no float32 count exists
+                "launches_sizes": sizes["launches"][name] if dt == F64 else None,
                 "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, **b,
                 "library_ms": library_ms, **more}
 
@@ -1620,7 +2128,8 @@ def main() -> int:
         f"TFLOP/s float32 and {F64_OPS / 1e12:g} TFLOP/s float64, draw work "
         f"counted as {DRAW_OPS} 32-bit operations a mode and, in float64, "
         f"{DRAW_F64_OPS} float64 ones; launches: the float32 and the float64 "
-        "end-to-end runs apart)")
+        f"end-to-end runs apart; launches_sizes: phase 11's {SIZES_N}^3 float64 CLI "
+        f"runs (null in float32: none ran); at_{SIZES_N}: B3, B4, B5 at {SIZES_N}^3)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"ok": True, "device": {

@@ -8,6 +8,10 @@ k_cutoff != 1), streams the particle output, then prints the physics QA
 statistics and throughput, with the same phases, timers, messages,
 checkpoint paths and exit codes.
 
+  Every even ppd from 2 to 53508 runs: a power of two in [16, 2048]
+  through the FFT kernels, any other through B3, B4, B5 and the
+  matrix-product DFTs
+  (ops/mmfft.py), as the JAX package routes by size.
   --device cuda (default) runs on the card and exits 1 when there is none;
   --device cpu runs the plain tensor-op versions (for tests and checks).
   --dtype float64 (the default, as the JAX CLI's: full parity), float32
@@ -100,6 +104,7 @@ def main(argv=None):
         return 1
 
     from .models.pipeline import Zeldovich
+    from .ops.synth import fft_kernels_take
     from .utils.output import OUTPUT_DTYPES, OutputWriter, setup_output_dir
     from .utils.params import ParameterError, Parameters
     from .utils.parseheader import ParseError
@@ -159,6 +164,13 @@ def main(argv=None):
         else:
             model = Zeldovich(param, dtype=dtype, device=args.device)
         sync()
+    if not (args.out_of_core or args.part or fft_kernels_take(param.ppd)) \
+            and model.half_exact:
+        # the separate half route holds its packed spectrum beside the
+        # output, where B1 and B2 share one grid
+        print(f"ppd {param.ppd} takes the matrix-product DFTs (the FFT kernels take "
+              f"powers of two in [16, 2048]): the half-spectrum step holds "
+              f"{2 * gib:5.3f} GiB (packed spectrum and output)", file=sys.stderr)
     if args.part != 2:
         setup_output_dir(param)
 

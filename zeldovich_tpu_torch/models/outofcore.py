@@ -7,13 +7,19 @@ lives in a host staging buffer (RAM, or an ``np.memmap`` for grids beyond
 RAM) and the device streams slabs through the kernels:
 
   pass 1 (y-slabs):  ``synthesize_pair`` (B5 draws at each mode's source
-                     index) -> zx_dft(+1) in place -> stage;
-  pass 2 (z-slabs):  stage -> y_dft(+1) in place -> particle writer.
+                     index) -> the z/x DFT(+1) in place -> stage;
+  pass 2 (z-slabs):  stage -> the y DFT(+1) in place -> particle writer.
 
 f_NL adds a phi round trip through a second stage of one array: the
-generation pass (gen_phi), then y_dft(+1), the non-linear map and
-y_dft(-1) of (phi, 0) on z-slabs, then zx_dft(-1) on y-slabs; pass 1
+generation pass (gen_phi), then the y DFT(+1), the non-linear map and the
+y DFT(-1) of (phi, 0) on z-slabs, then the z/x DFT(-1) on y-slabs; pass 1
 reads each slab's phi(k) at the same and the reflected indices.
+
+The slab DFTs are routed by ppd as in core (``ops/mmfft.py``: ``dft_zx``,
+``dft_y``): the kernels zx_dft (B6/B7) and y_dft (B8) at a power of two
+in [16, 2048], the matrix products at every other even ppd (1728, 4096,
+...), as JAX ``models/outofcore.py`` falls back to ``mmfft.cfft_axis``.
+B5 draws at every even ppd.
 
 Every slab, in the generated half, across ppd/2 or in the mirror half,
 takes the general source-index synthesis: the JAX package's identity
@@ -33,7 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops.fft import y_dft, zx_dft
+from ..ops.mmfft import dft_y, dft_zx
 from ..ops.modes_real import _reflect_zx, synthesize_pair
 from ..utils.output import OutputWriter, setup_output_dir
 from ..utils.streamio import (
@@ -102,7 +108,7 @@ class OutOfCoreZeldovich(Zeldovich):
         k = synthesize_pair(y0, self.slab, self.cfg, self.tables, self.dtype,
                             gen_phi=gen_phi, phi_pair=phi_pair,
                             D_source=self._D_source)
-        return zx_dft(k, +1, out=k)
+        return dft_zx(k, +1, out=k)
 
     # -- phi round trip -------------------------------------------------
     def _phi_stage(self):
@@ -114,14 +120,14 @@ class OutOfCoreZeldovich(Zeldovich):
         inv_n3 = 1.0 / p.ppd**3
 
         def fwd_y_phi_nl(z):
-            y_dft(z, +1, out=z)
-            return y_dft(phi_nl(z, p.f_NL, inv_n3), -1, out=z)
+            dft_y(z, +1, out=z)
+            return dft_y(phi_nl(z, p.f_NL, inv_n3), -1, out=z)
 
         zkeys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
         stream_to_host(((sel, fwd_y_phi_nl(z)) for sel, z in slabs_to_device(
             zkeys, stage.__getitem__, self.device)), stage.__setitem__)
         ykeys = [_ysel(y0, self.slab) for y0 in self._slab_starts()]
-        stream_to_host(((sel, zx_dft(y, -1, out=y)) for sel, y in slabs_to_device(
+        stream_to_host(((sel, dft_zx(y, -1, out=y)) for sel, y in slabs_to_device(
             ykeys, stage.__getitem__, self.device)), stage.__setitem__)
         return stage
 
@@ -180,7 +186,7 @@ class OutOfCoreZeldovich(Zeldovich):
         writer = OutputWriter(p)
         aw = AsyncSlabWriter(writer)
         keys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
-        items = ((sel[3].start, y_dft(z, +1, out=z)) for sel, z in slabs_to_device(
+        items = ((sel[3].start, dft_y(z, +1, out=z)) for sel, z in slabs_to_device(
             keys, stage.__getitem__, self.device))
         try:
             stream_to_host(items, lambda z0, h: _flush_chunk(aw, z0, h, pair=True))

@@ -6,13 +6,18 @@ coefficient planes -> the forward step -> streamed particle output + QA
 report, all in the model's ``dtype`` (float32 or float64: every kernel
 has an instance of each).  The forward step takes one of two routes:
 
-* the half spectrum (``half_exact`` configurations): B1 (synthesis +
-  packing + z/x transforms) and B2 (c2r along y); or, through the model
-  API ``kspace_half_pair`` -> ``xspace_half_pair(spm)``, the
-  separate-kernel route: B3 (synthesis + packing), zx, B2;
+* the half spectrum (``half_exact`` configurations).  At a ppd the FFT
+  kernels take (a power of two in [16, 2048], ``fft_kernels_take``): B1
+  (synthesis + packing + z/x transforms) and B2 (c2r along y), fused; at
+  every other even ppd the separate route, JAX ``_half_pair_forward``
+  without its mega kernel: B3 (synthesis + packing), the ky=0 fixup, then
+  ``ifft3_half_pair`` on the matrix-product DFTs of ``ops/mmfft.py``.
+  Through the model API ``kspace_half_pair`` -> ``xspace_half_pair(spm)``
+  the separate route at any ppd (zx and B2 where the kernels take ppd);
 * the full grid (f_NL, ZD_Version=1, CornerModes with k_cutoff != 1):
-  B4 draws -> ``synthesize_full_fast_pair`` -> ``ifft3_pair`` (B8 along y,
-  B6/B7 over z and x), with the f_NL phi pass in front.
+  B4 draws (every even ppd) -> ``synthesize_full_fast_pair`` ->
+  ``ifft3_pair`` (B8 along y, B6/B7 over z and x where the kernels take
+  ppd, the matrix products elsewhere), with the f_NL phi pass in front.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from ..ops.modes import SynthConfig, SynthTables
 from ..ops.modes_real import (
     fix_ky0_packed, pk_effective, plt_coef_fields, synthesize_full_fast_pair,
 )
-from ..ops.synth import halfspace_pack, halfspace_pack_zx
+from ..ops.synth import fft_kernels_take, halfspace_pack, halfspace_pack_zx
 from ..utils.output import (  # noqa: F401 (output_dtype re-exported)
     OutputWriter, output_dtype, setup_output_dir,
 )
@@ -113,7 +118,8 @@ class Zeldovich:
 
     def kspace_half_pair(self):
         """The packed half spectrum (narray, 2, 2, half+1, Z, X): kernel B3
-        and the ky=0 fixup.  Only for ``half_exact`` configurations."""
+        (every even ppd) and the ky=0 fixup.  Only for ``half_exact``
+        configurations."""
         if not self.half_exact:
             raise NotImplementedError(
                 "non-Hermitian configuration uses the full-grid pair path")
@@ -123,16 +129,21 @@ class Zeldovich:
     def xspace_half_pair(self, spm=None):
         """The forward step: (narray, 2, Y, Z, X) x-space real pairs.
 
-        Without ``spm``, the fused route (B1, then B2 in place on B1's
-        output); it falls back to the full-grid path for the
+        Without ``spm``: where the FFT kernels take ppd, the fused route
+        (B1, then B2 in place on B1's output); elsewhere the separate
+        route, ``kspace_half_pair`` and ``ifft3_half_pair`` on the matrix
+        products, its z/x pass in place (the spectrum and the output, no
+        third grid).  It falls back to the full-grid path for the
         configurations the half spectrum cannot represent, as the JAX
-        package does.  With ``spm`` (from
-        ``kspace_half_pair``), the separate-kernel route: zx, then B2.
+        package does.  With ``spm`` (from ``kspace_half_pair``), the
+        separate route on it: ``ifft3_half_pair``, spm left as it is.
         """
         if spm is not None:
             return ifft3_half_pair(spm)
         if not self.half_exact:
             return self.xspace_pair()
+        if not fft_kernels_take(self.cfg.ppd):
+            return ifft3_half_pair(self.kspace_half_pair(), overwrite=True)
         g = halfspace_pack_zx(self.cfg, self.tables, self.pk_eff, self.plt_coefs)
         return c2r_y(g, self.cfg.ppd, out=g)  # in place: one grid
 

@@ -16,7 +16,8 @@ Ports of ``zeldovich_tpu/ops/pallas_synth.py``:
   kernel takes the jumped states as limb planes; here the kernel forms
   them itself from the indices, one native 128-bit multiply-add.
 
-On a CUDA tensor each launches its hand-written kernel
+Both take every even ppd (``synth.check_draw_size``).  On a CUDA tensor
+each launches its hand-written kernel
 (csrc/boxmuller.cu, the float32 or the float64 instance by pk's dtype:
 the fast float32 draws or the exact float64 ones) or raises; on a CPU
 tensor it runs the plain version, the draw chain in int64-limb torch ops
@@ -30,7 +31,7 @@ import torch
 from .. import kernels
 from .modes import SynthTables
 from .modes_real import draw_planes, gaussian, y_chunk
-from .synth import check_kernel_dtype, check_kernel_size, check_operands
+from .synth import check_draw_size, check_kernel_dtype, check_operands
 
 
 def _check_planes(tables: SynthTables, rows: int, ky0: int):
@@ -77,10 +78,10 @@ def halfspace_boxmuller(tables: SynthTables, pk, fixed_power: bool, live=None,
     dev = pk.device
     if dev.type == "cpu":
         return halfspace_boxmuller_plain(tables, pk, fixed_power, live, ky0)
+    rows, n = pk.shape[0], pk.shape[-1]
+    check_draw_size(n)
     if dev.type != "cuda":
         raise ValueError(f"halfspace_boxmuller: no kernel for device {dev}")
-    rows, n = pk.shape[0], pk.shape[-1]
-    check_kernel_size(n)
     _check_planes(tables, rows, ky0)
     check_kernel_dtype(pk.dtype)
     want = {"pk": (pk, (rows, n, n), pk.dtype),
@@ -121,11 +122,11 @@ def boxmuller(tables: SynthTables, sy, sz, sx, pk, live, fixed_power: bool):
     dev = pk.device
     if dev.type == "cpu":
         return boxmuller_plain(tables, sy, sz, sx, pk, live, fixed_power)
-    if dev.type != "cuda":
-        raise ValueError(f"boxmuller: no kernel for device {dev}")
     n = tables.mzx64.shape[-1]
     half = tables.planes64.shape[0]
-    check_kernel_size(n)
+    check_draw_size(n)
+    if dev.type != "cuda":
+        raise ValueError(f"boxmuller: no kernel for device {dev}")
     shape = tuple(pk.shape)
     check_kernel_dtype(pk.dtype)
     want = {

@@ -80,9 +80,9 @@ def c2r_y(spm, n: int, out=None):
     if spm.device.type == "cpu":
         x = c2r_y_plain(spm, n)
         return x if dst is None else dst.copy_(x)
+    check_kernel_size(n)
     if spm.device.type != "cuda":
         raise ValueError(f"c2r_y: no kernel for device {spm.device}")
-    check_kernel_size(n)
     check_kernel_dtype(spm.dtype)
     # float32 moves two adjacent columns as one 8-byte word
     odd = spm.dtype == torch.float32 and (spm.shape[-2] * spm.shape[-1]) % 2

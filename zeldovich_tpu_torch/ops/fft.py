@@ -74,10 +74,11 @@ def _check_out(pair, out, what):
 
 
 def _kernel_args(pair, out, n, sign, what):
-    """Checks for the CUDA route; returns (out, twiddles, batch)."""
+    """Checks for the CUDA route, the size first; returns (out, twiddles,
+    batch)."""
+    check_kernel_size(n)
     if pair.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {pair.device}")
-    check_kernel_size(n)
     check_kernel_dtype(pair.dtype)
     if not pair.is_contiguous():
         raise ValueError(f"{what} kernel: want a contiguous input")

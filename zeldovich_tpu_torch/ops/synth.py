@@ -10,7 +10,13 @@ Ports of ``zeldovich_tpu/ops/pallas_synth.py``:
   told ``n`` explicitly;
 * ``halfspace_pack`` (B3, ``halfspace_pack_pallas``) returns the
   untransformed ``(narray, 2, 2, half+1, Z, X)`` with the ky=0 plane raw
-  and the Nyquist row zero: the separate-kernel half route's synthesis.
+  and the Nyquist row zero: the separate half route's synthesis, at every
+  even ppd (B3 carries no DFT).
+
+Two size rules: ``fft_kernels_take`` (power-of-two ppd in [16, 2048]) for
+the kernels that carry a DFT (B1 here, B2, zx, y), which ``ops/mmfft.py``
+also routes by, and ``check_draw_size`` (every even ppd up to
+``DRAW_PPD_MAX``) for the draw and pack kernels B3, B4 and B5.
 
 On a CUDA tensor each launches its hand-written kernel (csrc/synth.cu,
 the float32 or the float64 instance by pk_eff's dtype) or raises; on a
@@ -52,12 +58,41 @@ def check_kernel_dtype(dtype):
         raise TypeError(f"the CUDA kernels are float32 and float64, got {dtype}")
 
 
+def fft_kernels_take(n: int) -> bool:
+    """The FFT kernels' size rule (B1, B2, zx, y): a power of two in
+    [16, 2048].  The port of the size term of the JAX package's kernel
+    gates (``pallas_fft._gate``); other lengths take the matrix products
+    of ``ops/mmfft.py``."""
+    return 16 <= n <= 2048 and not n & (n - 1)
+
+
 def check_kernel_size(n: int):
-    """The kernels take power-of-two lengths in [16, 2048]."""
-    if n & (n - 1) or not 16 <= n <= 2048:
+    """Raise unless the FFT kernels take length n (``fft_kernels_take``)."""
+    if not fft_kernels_take(n):
         raise ValueError(
-            f"ppd {n}: the CUDA kernels take power-of-two ppd in [16, 2048] "
-            "(other sizes: ROADMAP A12)"
+            f"ppd {n}: the CUDA FFT kernels take power-of-two ppd in [16, 2048]; "
+            "other sizes take the matrix-product route of ops/mmfft.py "
+            "(kernels for them: ROADMAP A12b)"
+        )
+
+
+#: The largest ppd of the draw and pack kernels (B3, B4, B5): B3's launch
+#: grid has ppd blocks along y and ppd/2 + 1 along z (at most 65535 each)
+#: and its int wavenumber sum kx^2 + ky^2 + kz^2 reaches 3 (ppd/2)^2, below
+#: 2^31 up to ppd = 53508; every other index of the three is size_t or
+#: long long, and none assumes a power of two
+DRAW_PPD_MAX = 53508
+
+
+def check_draw_size(n: int):
+    """The draw and pack kernels B3, B4 and B5 take every even ppd in
+    [2, DRAW_PPD_MAX]: their blocks take any row length (B3's block is
+    min(ppd, 256) threads, B4 guards its ragged tiles and columns, B5 is
+    flat over the modes)."""
+    if n % 2 or not 2 <= n <= DRAW_PPD_MAX:
+        raise ValueError(
+            f"ppd {n}: the CUDA draw and pack kernels (B3, B4, B5) take even "
+            f"ppd in [2, {DRAW_PPD_MAX}]"
         )
 
 
@@ -86,13 +121,14 @@ def halfspace_pack_zx_plain(cfg: SynthConfig, tables: SynthTables, pk_eff,
 
 
 def _kernel_operands(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs,
-                     what: str, ky0: int = 0):
-    """Checks for the B1/B3 CUDA route; returns (coefs, flags, fund, fund2)."""
+                     what: str, size_rule, ky0: int = 0):
+    """Checks for the B1/B3 CUDA route, the size by size_rule; returns
+    (coefs, flags, fund, fund2)."""
     dev = pk_eff.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {dev}")
     n, half = cfg.ppd, cfg.ppd // 2
-    check_kernel_size(n)
+    size_rule(n)
     dtype = pk_eff.dtype
     check_kernel_dtype(dtype)
     if cfg.qPLT and plt_coefs is None:
@@ -133,7 +169,8 @@ def halfspace_pack_zx(cfg: SynthConfig, tables: SynthTables, pk_eff,
     if pk_eff.device.type == "cpu":
         return halfspace_pack_zx_plain(cfg, tables, pk_eff, plt_coefs, ky0)
     coefs, flags, fund, fund2 = _kernel_operands(cfg, tables, pk_eff, plt_coefs,
-                                                 "halfspace_pack_zx", ky0)
+                                                 "halfspace_pack_zx", check_kernel_size,
+                                                 ky0)
     n, rows = cfg.ppd, pk_eff.shape[0]
     out = torch.empty((cfg.narray, 2, 2, rows, n, n), dtype=pk_eff.dtype,
                       device=pk_eff.device)
@@ -152,7 +189,7 @@ def halfspace_pack(cfg: SynthConfig, tables: SynthTables, pk_eff, plt_coefs=None
     if pk_eff.device.type == "cpu":
         return pack_half_raw(cfg, tables, pk_eff.dtype, pk_eff, plt_coefs)
     coefs, flags, fund, fund2 = _kernel_operands(cfg, tables, pk_eff, plt_coefs,
-                                                 "halfspace_pack")
+                                                 "halfspace_pack", check_draw_size)
     if pk_eff.shape[0] != cfg.ppd // 2:
         raise ValueError("halfspace_pack: want pk_eff of every generated plane")
     n, half = cfg.ppd, cfg.ppd // 2
