@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (zeldovich_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only sharded]
 
 Run from a checkout, with no install step; it needs one CUDA card and
 nvcc.  Phases, each printed on its own lines; any failure raises and the
@@ -108,6 +108,28 @@ script exits non-zero without printing a result:
    ppd 2, 8 and 12 (SIZES_SMALL) in both types: B3, B4 and B5 against
    their plain versions and the separate half step, plain and PLT, against
    the plain route with its launches.
+
+12. the sharded step (``--sharded``, zeldovich_tpu_torch/parallel), in
+   float64: (a) the CLI with --sharded over every card (NCCL; one card:
+   one rank in this process, its launch counters reset just before each
+   run and read just after) against a one-rank CLI run of the same
+   arithmetic, every ic_* byte: 512^3 plain and 128^3 PLT against the
+   in-core run (the half route: B1 and B2), 256^3 f_NL (RVdoubleZel) and
+   576^3 plain against --out-of-core (the full grid: B5, zx, y or the
+   matrix products, z/x before y); (b) two ranks sharing card 0 over a
+   gloo group (started with the spawn method), through the model API at
+   256^3 plain (half route) and f_NL and at 192^3 (full grid on the
+   products): every rank must launch its route's kernels, and the slabs
+   put together equal the one-device step bit for bit on the half route,
+   within 1e-12 of the largest value on the full grid (which transforms
+   z/x before y); (c) timing over every card (NCCL; one card: one rank in
+   this process, at 512^3; more: a rank a card, at 512^3 and 1024^3), in
+   float32 and float64 plain (the half route) and float64 f_NL (the full
+   grid): the sharded step, its exchange alone with its bytes bound, the
+   one-device step, their peak memory.  With more than one card (a) and
+   (c) start a process a card (the spawn method, the environment torchrun
+   gives its ranks) and every rank's launch counters are read and checked.
+   ``python3 chip_smoke.py --only sharded`` runs phases 1 and 12 alone.
 
 Phases 2 to 8 run twice, in float32 and in float64 (the double instances
 of every kernel: against the plain versions to 1e-12 of the largest value
@@ -2050,7 +2072,308 @@ def phase_sizes():
     return res
 
 
-def main() -> int:
+#: phase 12: the sharded step.  (a) the CLI with --sharded over every card
+#: (NCCL), against a one-rank CLI run of the same arithmetic, ic_* bytes:
+#: name, ppd, PLT, extra keys, the one-rank run's flags, its kernels
+SHARDED_CLI = (
+    ("sharded_plain512", 512, False, {}, [], HALF),
+    ("sharded_plt128", 128, True, {}, [], HALF),
+    # the full grid runs z/x before y, as the out-of-core run does
+    ("sharded_fnl256", 256, False, dict(FNL, **DOUBLES), OOC_FLAGS, OOC),
+    ("sharded_576", 576, False, {}, OOC_FLAGS, ("boxmuller",)),
+)
+#: (b) two ranks sharing the card over gloo, through the model API:
+#: name, ppd, extra keys, the kernels each rank must launch
+SHARDED_GLOO = (
+    ("half256", 256, {}, HALF),
+    ("fnl256", 256, FNL, OOC),
+    ("full192", 192, {}, ("boxmuller",)),  # 192: the matrix products
+)
+
+
+def _run_ranks(procs, timeout, what):
+    """Start the rank processes, wait up to `timeout` s for them all, kill
+    any left; every rank must exit 0."""
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"{what}: ranks exited {[p.exitcode for p in procs]}")
+
+
+def _gloo_rank(rank, world, store, out):
+    """Phase 12b's rank: the sharded steps of SHARDED_GLOO in float64 on
+    card 0 over a gloo group; its slabs and launch counts into out."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300))
+    try:
+        mesh = make_mesh("cuda:0", group=dist.group.WORLD)
+        kernels.library()
+        res = {}
+        for name, ppd, extra, _ in SHARDED_GLOO:
+            m = model_for(ppd, False, dt=F64, **extra)
+            m.sharded_fields(mesh)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            x = m.xspace_half_pair_sharded(mesh)
+            torch.cuda.synchronize()
+            res[name] = dict(kernels.launches)
+            torch.save(x.cpu(), Path(out) / f"{name}.r{rank}.pt")
+            del x, m
+        (Path(out) / f"r{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _cli_job(argv):
+    """A rank's CLI run: its exit code and its launch counts, reset just
+    before the run and read just after."""
+    from zeldovich_tpu_torch import cli, kernels
+
+    kernels.reset_launches()
+    rc = cli.main(argv)
+    return {"rc": rc, "launches": dict(kernels.launches)}
+
+
+def _timing_job(ppds):
+    """A rank's phase 12c timings at each ppd (the largest over the ranks)."""
+    from zeldovich_tpu_torch.parallel.mesh import make_mesh
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        mesh = make_mesh("cuda")
+    try:
+        return [_sharded_timing(mesh, ppd) for ppd in ppds]
+    finally:
+        mesh.close()
+
+
+def _card_rank(rank, world, port, out, job, arg):
+    """Rank `rank` of `world` in the environment torchrun gives its ranks
+    (card `rank`, rendezvous on a localhost port): job(arg)'s result into
+    out/r<rank>.json."""
+    import os
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    sys.path.insert(0, str(ROOT))
+    res = {"cli": _cli_job, "timing": _timing_job}[job](arg)
+    (Path(out) / f"r{rank}.json").write_text(json.dumps(res))
+
+
+def _card_ranks(world, job, arg, out: Path, timeout):
+    """job(arg) in `world` ranks started with the spawn method, a card
+    each; every rank's result."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as s:  # a free port for the ranks' rendezvous
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for f in out.glob("r*.json"):
+        f.unlink()
+    ctx = multiprocessing.get_context("spawn")
+    _run_ranks([ctx.Process(target=_card_rank, args=(r, world, port, str(out), job, arg))
+                for r in range(world)], timeout, f"{job} over {world} cards")
+    return [json.loads((out / f"r{r}.json").read_text()) for r in range(world)]
+
+
+def _sharded_cli(tmp: Path, total: dict):
+    """(a): each SHARDED_CLI run with --sharded over every card against its
+    one-rank run, byte for byte; each rank's launches, checked and added
+    into total."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+
+    cards = torch.cuda.device_count()
+    for name, ppd, plt, extra, one_flags, want in SHARDED_CLI:
+        say(f"-- {name}: {ppd}^3 {'PLT' if plt else 'plain'} f64 {extra or ''} --sharded "
+            f"over {cards} card(s), against {' '.join(one_flags) or 'the in-core run'}")
+        par = _write_par(tmp, name, ppd, plt, extra)
+        if cards == 1:  # one rank in this process, as a run without torchrun
+            kernels.reset_launches()
+            _run_cli(par, "--sharded")
+            ranks = [dict(kernels.launches)]
+        else:  # a rank a card, each in a process of its own
+            res = _card_ranks(cards, "cli", [str(par), "--sharded"], tmp, 600)
+            check(all(r["rc"] == 0 for r in res), f"{name}: ranks exited {res}")
+            ranks = [r["launches"] for r in res]
+        for r, launches in enumerate(ranks):
+            _check_launches(f"{name} rank {r}", launches, want)
+            for k, v in launches.items():
+                total[k] += v
+        one = _write_par(tmp, f"{name}_one", ppd, plt, extra)
+        _run_cli(one, *one_flags)
+        fmt = extra.get("ICFormat", "RVZel").strip('"')
+        files = _ic_files(tmp / name, ppd, cpd_for(ppd), fmt)
+        for f in files:
+            check(f.read_bytes() == (tmp / f"{name}_one" / f.name).read_bytes(),
+                  f"{name}: {f.name} differs from the one-rank run")
+        say(f"  {len(files)} ic_* files byte for byte the one-rank run's")
+        shutil.rmtree(tmp / name)
+        shutil.rmtree(tmp / f"{name}_one")
+        torch.cuda.empty_cache()
+
+
+def _sharded_gloo(tmp: Path) -> dict:
+    """(b): two ranks share card 0 over gloo; their slabs against the
+    one-device step, their launch counts."""
+    import multiprocessing
+
+    import torch
+
+    say("-- two ranks on one card over gloo, through the model API (float64)")
+    ctx = multiprocessing.get_context("spawn")
+    _run_ranks([ctx.Process(target=_gloo_rank, args=(r, 2, str(tmp / "store"), str(tmp)))
+                for r in range(2)], 240, "gloo")
+    ranks = [json.loads((tmp / f"r{r}.json").read_text()) for r in range(2)]
+    res = {}
+    for name, ppd, extra, want in SHARDED_GLOO:
+        for r, launches in enumerate(ranks):
+            _check_launches(f"{name} rank {r}", launches[name], want)
+        x = torch.cat([torch.load(tmp / f"{name}.r{r}.pt") for r in range(2)], dim=-2)
+        m = model_for(ppd, False, dt=F64, **extra)
+        ref = (m.xspace_half_pair() if m.half_exact else m.xspace_pair()).cpu()
+        del m
+        if name == "half256":
+            # the same kernels on the same planes and columns: bit for bit
+            same = torch.equal(x, ref)
+            say(f"  {name}: 2 ranks vs the one-device step: bit-equal {same}")
+            check(same, f"{name}: the sharded half step differs from the one-device one")
+            err = 0.0
+        else:
+            # the full grid transforms z/x before y, the one-device step y
+            # first (and at 192 the separate half route): rounding apart
+            err = compare(x, ref, F64_TOL, f"{name}: 2 ranks vs the one-device step")
+        res[name] = {"launches": [rk[name] for rk in ranks], "max_abs_err": err}
+        del x, ref
+    return res
+
+
+def _exchange_operands(m, mesh):
+    """The blocks the step's first exchange moves: (x, out, split axis,
+    concat axis, split, concat) at this rank's shapes."""
+    import torch
+
+    from zeldovich_tpu_torch.parallel import pencil_mmfft as pm
+
+    n, na, w = m.cfg.ppd, m.cfg.narray, mesh.world
+    dev, dt = mesh.device, m.dtype
+    if m.half_route_sharded():
+        k0, k1 = pm.ky_planes(n, mesh)
+        x = torch.rand((na, 2, 2, k1 - k0, n, n), dtype=dt, device=dev)
+        out = torch.empty((na, 2, 2, n // 2, n // w, n), dtype=dt, device=dev)
+        return x, out, 4, 3, [n // w] * w, pm.split_sizes(n // 2, w)
+    x = torch.rand((na, 2, n // w, n, n), dtype=dt, device=dev)
+    out = torch.empty((na, 2, n, n // w, n), dtype=dt, device=dev)
+    return x, out, 3, 2, [n // w] * w, [n // w] * w
+
+
+def _sharded_timing(mesh, ppd: int) -> dict:
+    """(c) at ppd on this rank's card, plain in float32 and float64 (the
+    half route) and f_NL in float64 (the full grid): the sharded step, its
+    first exchange alone beside its bound (a rank's blocks read once and
+    written once at HBM_BPS), the one-device step on the same card, each
+    with its peak memory; every number the largest over the ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from zeldovich_tpu_torch.parallel import pencil_mmfft as pm
+
+    res = {"ppd": ppd, "world": mesh.world, "backend": mesh.backend, "cases": []}
+    for case, dt, extra in (("plain", F32, {}), ("plain", F64, {}), ("fnl", F64, FNL)):
+        m = model_for(ppd, False, device=mesh.device, dt=dt, **extra)
+        m.sharded_fields(mesh)
+        what = f"{ppd}^3 {case} {TAG[dt]} rank {mesh.rank} of {mesh.world}"
+        one = m.xspace_half_pair if m.half_exact else m.xspace_pair
+        sharded_ms, sharded_peak = _peak(lambda: m.xspace_half_pair_sharded(mesh), ppd,
+                                         f"{what}: sharded", reps=3)
+        x, out, sa, ca, split, concat = _exchange_operands(m, mesh)
+        moved = nbytes(x, out)
+        pm.exchange(x, out, sa, ca, split, concat, mesh)  # warm-up
+        ex_ms = sorted(_time(lambda: pm.exchange(x, out, sa, ca, split, concat, mesh), 3)
+                       for _ in range(3))[1]
+        del x, out
+        torch.cuda.empty_cache()
+        one_ms, one_peak = _peak(one, ppd, f"{what}: one device", reps=3)
+        vals = torch.tensor([sharded_ms, sharded_peak / 2**30, ex_ms, one_ms,
+                             one_peak / 2**30], dtype=torch.float64, device=mesh.device)
+        dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=mesh.group)
+        vals = vals.tolist()
+        res["cases"].append({
+            "case": case, "dtype": dt,
+            "route": "half (B1, exchange, B2)" if m.half_route_sharded()
+            else "full grid (B5, zx, exchange, y)",
+            "sharded_ms": vals[0], "sharded_peak_gib": vals[1], "exchange_ms": vals[2],
+            "exchange_bound_ms": 1e3 * moved / HBM_BPS, "one_device_ms": vals[3],
+            "one_device_peak_gib": vals[4]})
+        del m
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_sharded():
+    """Phase 12: the sharded step (--sharded, zeldovich_tpu_torch/parallel)."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+
+    cards = torch.cuda.device_count()
+    say(f"== phase 12: the sharded step, on {smi()}, {cards} card(s)")
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="zt_sharded_"))
+    total = {k: 0 for k in kernels.launches}
+    try:
+        _sharded_cli(tmp, total)
+        say(f"  phase 12 at {time.perf_counter() - t0:.1f} s")
+        (tmp / "gloo").mkdir()
+        gloo = _sharded_gloo(tmp / "gloo")
+        say(f"  phase 12 at {time.perf_counter() - t0:.1f} s")
+        # 1024^3 where the ranks' slabs fit: a one-rank float64 half step
+        # holds B1's output and the z-slab, 2 x 36 GiB
+        ppds = [512] if cards == 1 else [512, 1024]
+        timing = (_timing_job(ppds) if cards == 1
+                  else _card_ranks(cards, "timing", ppds, tmp, 600)[0])
+        for t in timing:
+            for c in t["cases"]:
+                say(f"  {t['ppd']}^3 {c['case']} {TAG[c['dtype']]} ({c['route']}) over "
+                    f"{t['world']} rank(s) ({t['backend']}): sharded {c['sharded_ms']:.3f} ms "
+                    f"at {c['sharded_peak_gib']:.2f} GiB, one device {c['one_device_ms']:.3f} "
+                    f"ms at {c['one_device_peak_gib']:.2f} GiB; exchange "
+                    f"{c['exchange_ms']:.3f} ms (bound {c['exchange_bound_ms']:.3f})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"  launches over the sharded CLI runs, every rank: {total}")
+    say(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"sharded": {"launches": total, "gloo": gloo, "timing": timing}}))
+    return total
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on the GPU.")
+    ap.add_argument("--only", choices=["sharded"],
+                    help="phases 1 and 12 alone (no kernel summary)")
+    args = ap.parse_args(argv)
     if not (ROOT / "zeldovich_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
               file=sys.stderr)
@@ -2062,8 +2385,18 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
+
+    def stamp(what):  # where the script's time goes, phase by phase
+        say(f"-- {what} done at {time.perf_counter() - t0:.1f} s")
+
     phase_card()
+    if args.only == "sharded":
+        phase_sharded()
+        say(f"phases 1 and 12 passed in {time.perf_counter() - t0:.1f} s")
+        say(smi())
+        return 0
     phase_eigmodes()
+    stamp("phases 1, 1b")
     res = {}
     for dt in (F32, F64):
         r = res[dt] = {}
@@ -2073,9 +2406,15 @@ def main() -> int:
         phase_fullgrid_timing(dt)
         r["b5_err"], r["b5_ms"] = phase_b5(dt)
         r["b3_err"], r["b3_ms"] = phase_b3(dt)
+        stamp(f"phases 2-8 {TAG[dt]}")
     phase_outofcore()
+    stamp("phase 9")
     launches = phase_end_to_end()
+    stamp("phase 10")
     sizes = phase_sizes()
+    stamp("phase 11")
+    sharded = phase_sharded()
+    stamp("phase 12")
     card = smi()
 
     def entry(dt, name, source, replaces, err, ms, **more):
@@ -2089,8 +2428,9 @@ def main() -> int:
                 "source": f"zeldovich_tpu_torch/csrc/{stem}",
                 "templates": f"zeldovich_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[dt][name],
-                # phase 11's CLI runs are float64: no float32 count exists
+                # phase 11's and 12's CLI runs are float64: no float32 count
                 "launches_sizes": sizes["launches"][name] if dt == F64 else None,
+                "launches_sharded": sharded[name] if dt == F64 else None,
                 "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, **b,
                 "library_ms": library_ms, **more}
 
@@ -2129,7 +2469,8 @@ def main() -> int:
         f"counted as {DRAW_OPS} 32-bit operations a mode and, in float64, "
         f"{DRAW_F64_OPS} float64 ones; launches: the float32 and the float64 "
         f"end-to-end runs apart; launches_sizes: phase 11's {SIZES_N}^3 float64 CLI "
-        f"runs (null in float32: none ran); at_{SIZES_N}: B3, B4, B5 at {SIZES_N}^3)")
+        f"runs (null in float32: none ran); launches_sharded: phase 12's float64 "
+        f"--sharded CLI runs (null in float32); at_{SIZES_N}: B3, B4, B5 at {SIZES_N}^3)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"ok": True, "device": {

@@ -235,3 +235,92 @@ def test_part1_checkpoint_is_float64_by_default(tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
     assert main([str(par), "--device", "cpu", "--out-of-core", "--part", "1"]) == 0
     assert (tmp_path / "run" / "zeldovich.kspace.mm").stat().st_size == 2 * 2 * 16**3 * 8
+
+
+# -- out of core: the stage's meta file and its check (ROADMAP C11) -------
+
+OOC = ["--device", "cpu", "--out-of-core", "--slab-mb", "1"]
+
+
+def _dtype_flags(dtype):
+    return [] if dtype == "float64" else ["--dtype", dtype]  # float64: the default
+
+
+@pytest.mark.parametrize("part1,part2", [("float64", "float32"), ("float32", "float64")])
+def test_out_of_core_part2_with_another_dtype_exits_1(tmp_path, capsys, part1, part2):
+    """A stage of the other precision is refused with the in-core message
+    (a float64 stage read as float32 gave NaN particles; a float32 stage
+    read as float64 an uncaught mmap error)."""
+    par = _write_par(tmp_path / "p.par", tmp_path / "run")
+    assert main([str(par), *OOC, *_dtype_flags(part1), "--part", "1"]) == 0
+    assert main([str(par), *OOC, *_dtype_flags(part2), "--part", "2"]) == 1
+    err = capsys.readouterr().err
+    assert "same .par and --dtype" in err and f"pair {part1}" in err
+    assert not list((tmp_path / "run").glob("ic_*"))
+    assert (tmp_path / "run" / "zeldovich.kspace.mm").exists()  # kept to resume
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_out_of_core_part2_refuses_the_jax_complex_stage(tmp_path, capsys, dtype):
+    """The JAX CLI's out-of-core PART1 stage on a backend with complex
+    numbers is the complex128 (narray, Y, Z, X) grid, the byte count of a
+    float64 pair stage, with no meta file: it is never read as pairs.  Made
+    as ``python -m zeldovich_tpu --out-of-core --part 1`` makes it (float64,
+    ``pair`` False where the backend has complex numbers)."""
+    from zeldovich_tpu.models.outofcore import OutOfCoreZeldovich as JOutOfCore
+
+    par = _write_par(tmp_path / "p.par", tmp_path / "run")
+    jm = JOutOfCore(Parameters.from_file(par), dtype=jnp.float64, pair=False,
+                    slab_bytes=1 << 20)
+    (tmp_path / "run").mkdir()
+    mm = tmp_path / "run" / "zeldovich.kspace.mm"
+    jm.stage_pass1(stage=jm.stage_memmap(mm, "w+")).flush()
+    assert mm.stat().st_size == 2 * 16**3 * 16 and not list(mm.parent.glob("*.json"))
+    capsys.readouterr()
+    assert main([str(par), *OOC, *_dtype_flags(dtype), "--part", "2"]) == 1
+    err = capsys.readouterr().err
+    assert "same .par and --dtype" in err and "no meta file" in err
+    assert "assumed" not in err and not list((tmp_path / "run").glob("ic_*"))
+
+
+def test_out_of_core_part2_resumes_its_stage_with_the_same_bytes(tmp_path, capsys):
+    """PART1 writes the stage's meta file beside it; a matching PART2
+    resumes, removes both, and writes the bytes of a one-shot out-of-core
+    run."""
+    import json
+
+    par = _write_par(tmp_path / "p.par", tmp_path / "run", **CASES["fnl"])
+    one = _write_par(tmp_path / "one.par", tmp_path / "one", **CASES["fnl"])
+    assert main([str(par), *OOC, "--part", "1"]) == 0
+    mm = tmp_path / "run" / "zeldovich.kspace.mm"
+    meta = mm.with_name(mm.name + ".meta.json")
+    assert json.loads(meta.read_text()) == {
+        "layout": "pair", "shape": [2, 2, 16, 16, 16], "dtype": "float64"}
+    assert main([str(par), *OOC, "--part", "2"]) == 0
+    assert "assumed" not in capsys.readouterr().err
+    assert not mm.exists() and not meta.exists()
+    assert main([str(one), *OOC]) == 0
+    want = {f.name: f.read_bytes() for f in (tmp_path / "one").glob("ic_*")}
+    assert want and {f.name: f.read_bytes()
+                     for f in (tmp_path / "run").glob("ic_*")} == want
+
+
+def test_out_of_core_part2_takes_a_jax_pair_stage(tmp_path, capsys, monkeypatch):
+    """A stage with no meta file of the run's size whose y-Nyquist planes
+    are zero, the JAX package's pair stage (its general slab synthesis,
+    ROADMAP C1), resumes as the pair layout with one stderr line."""
+    from zeldovich_tpu.models.outofcore import OutOfCoreZeldovich as JOutOfCore
+
+    par = _write_par(tmp_path / "p.par", tmp_path / "run")
+    one = _write_par(tmp_path / "one.par", tmp_path / "one")
+    monkeypatch.setenv("ZT_SLAB_IDENTITY", "0")
+    jm = JOutOfCore(Parameters.from_file(par), dtype=jnp.float64, pair=True,
+                    slab_bytes=1 << 20)
+    (tmp_path / "run").mkdir()
+    mm = tmp_path / "run" / "zeldovich.kspace.mm"
+    jm.stage_pass1(stage=jm.stage_memmap(mm, "w+")).flush()
+    assert main([str(par), *OOC, "--part", "2"]) == 0
+    assert "no meta file: assumed to be the pair float64" in capsys.readouterr().err
+    assert not mm.exists()
+    assert main([str(one), *OOC]) == 0
+    _same_particles(tmp_path / "run", tmp_path / "one")

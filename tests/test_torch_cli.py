@@ -134,7 +134,7 @@ def test_memory_plan_counts_the_phi_grid(tmp_path, capsys, over, narrays):
 
 @pytest.mark.parametrize(
     "flags,item",
-    [(["--sharded"], "A10"), (["--distributed"], "A10"),
+    [(["--sharded", "--out-of-core"], "A10"), (["--distributed"], "A10"),
      (["--profile", "d"], "A11"),
      (["--coordinator", "localhost:1234"], "A10"), (["--num-processes", "2"], "A10"),
      (["--process-id", "0"], "A10")],

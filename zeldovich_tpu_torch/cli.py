@@ -32,8 +32,15 @@ checkpoint paths and exit codes.
       default).
   --pair is accepted and changes nothing: the port is always the
       complex-free pair route.
+  --sharded runs the step over a mesh of ranks (parallel/): every rank of
+      a torchrun launch (``python -m torch.distributed.run
+      --nproc-per-node N -m zeldovich_tpu_torch --sharded ...``: NCCL, a
+      card a rank; gloo with --device cpu), or one rank without torchrun.
+      Rank 0 writes every rank's z-slab, the report and the timers; the
+      ic_* files are those of a one-rank run.  With --out-of-core or
+      --part, and ZD_Version=1, it exits 1.
 
-Flags of the JAX CLI that are not ported yet (--sharded, --distributed,
+Flags of the JAX CLI that are not ported yet (--distributed,
 --coordinator, --num-processes, --process-id, --profile)
 exit 1 naming the ROADMAP item that will bring them.
 """
@@ -41,16 +48,17 @@ exit 1 naming the ROADMAP item that will bring them.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import sys
 import time
 
 #: unported flag -> (how it shows in args, ROADMAP item)
 _NOT_PORTED = {
-    "--sharded": ("sharded", "A10 (several devices)"),
-    "--distributed": ("distributed", "A10 (several hosts)"),
-    "--coordinator": ("coordinator", "A10 (several hosts)"),
-    "--num-processes": ("num_processes", "A10 (several hosts)"),
-    "--process-id": ("process_id", "A10 (several hosts)"),
+    "--distributed": ("distributed", "A10b (several hosts)"),
+    "--coordinator": ("coordinator", "A10b (several hosts)"),
+    "--num-processes": ("num_processes", "A10b (several hosts)"),
+    "--process-id": ("process_id", "A10b (several hosts)"),
     "--profile": ("profile", "A11 (device traces)"),
 }
 
@@ -88,6 +96,12 @@ def main(argv=None):
             print(f"{flag} is not ported to the torch package yet: ROADMAP "
                   f"{item}; use python -m zeldovich_tpu", file=sys.stderr)
             return 1
+    if args.sharded and (args.out_of_core or args.part):
+        what = "--out-of-core" if args.out_of_core else f"--part {args.part}"
+        print(f"--sharded with {what} is not ported to the torch package yet: "
+              "ROADMAP A10b (sharded checkpoints and out of core); use python -m "
+              "zeldovich_tpu", file=sys.stderr)
+        return 1
     if args.dtype == "df64":
         print("--dtype df64 runs as native float64 in the torch package (the "
               "double-float emulation is for chips without float64)",
@@ -102,6 +116,27 @@ def main(argv=None):
         print("--device cuda: no CUDA device is available (use --device cpu "
               "for the plain tensor-op route)", file=sys.stderr)
         return 1
+    if not args.sharded:
+        return _run(args, None, t_total)
+
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(args.device)
+    try:
+        # rank 0 speaks for the run; a failing rank's traceback still shows
+        quiet = (contextlib.redirect_stderr(io.StringIO()) if mesh.rank
+                 else contextlib.nullcontext())
+        with quiet:
+            print(f"Sharded run over mesh {{'rank': {mesh.world}}} "
+                  f"({mesh.backend}, {mesh.device})", file=sys.stderr)
+            return _run(args, mesh, t_total)
+    finally:
+        mesh.close()
+
+
+def _run(args, mesh, t_total):
+    """The run of main(); ``mesh`` for --sharded, else None."""
+    import torch
 
     from .models.pipeline import Zeldovich
     from .ops.synth import fft_kernels_take
@@ -155,24 +190,33 @@ def main(argv=None):
     ckpt_mm = param.output_path / "zeldovich.kspace.mm"
     with timers.phase("Model setup (P(k), RNG tables, eigenmodes)"):
         if args.out_of_core:
-            from .models.outofcore import OutOfCoreZeldovich
+            from .models.outofcore import OutOfCoreZeldovich, StageMismatch
 
             model = OutOfCoreZeldovich(
                 param, dtype=dtype, slab_bytes=args.slab_mb << 20,
                 backing=args.backing, device=args.device,
             )
         else:
-            model = Zeldovich(param, dtype=dtype, device=args.device)
+            model = Zeldovich(param, dtype=dtype,
+                              device=args.device if mesh is None else mesh.device)
         sync()
-    if not (args.out_of_core or args.part or fft_kernels_take(param.ppd)) \
+    if not (args.out_of_core or args.part or mesh or fft_kernels_take(param.ppd)) \
             and model.half_exact:
         # the separate half route holds its packed spectrum beside the
         # output, where B1 and B2 share one grid
         print(f"ppd {param.ppd} takes the matrix-product DFTs (the FFT kernels take "
               f"powers of two in [16, 2048]): the half-spectrum step holds "
               f"{2 * gib:5.3f} GiB (packed spectrum and output)", file=sys.stderr)
-    if args.part != 2:
+    if mesh is not None:
+        try:
+            model.check_sharded(mesh)
+        except (NotImplementedError, ValueError) as e:
+            print(e, file=sys.stderr)
+            return 1
+    if args.part != 2 and (mesh is None or mesh.rank == 0):
         setup_output_dir(param)
+    if mesh is not None:
+        return _sharded_step(model, param, mesh, timers, sync, t_total)
 
     if args.out_of_core:
         # streamed run (the PART boundary is the staged host buffer)
@@ -182,7 +226,14 @@ def main(argv=None):
                 stage.flush()
                 print(f"Checkpoint written to {ckpt_mm}", file=sys.stderr)
             elif args.part == 2:
-                model.run(setup_dir=False, stage=model.stage_memmap(ckpt_mm, "r"))
+                try:
+                    stage = model.stage_memmap(ckpt_mm, "r")
+                except StageMismatch as e:
+                    print(f"{e} (part 1/2 must use the same .par and --dtype)",
+                          file=sys.stderr)
+                    return 1
+                model.run(setup_dir=False, stage=stage)
+                del stage
                 model.cleanup_stage_memmap(ckpt_mm)
             else:
                 model.run(setup_dir=False)
@@ -245,6 +296,31 @@ def main(argv=None):
     writer.report(model.Pk)
     timers.report(file=sys.stderr)  # the current stderr, not import-time's
     _report_rate(param, t_total)
+    return 0
+
+
+def _sharded_step(model, param, mesh, timers, sync, t_total):
+    """--sharded after the model's setup: this rank's fields, its z-slab
+    of the step, and the output through rank 0's writer."""
+    from .utils.output import OutputWriter
+    from .utils.streamio import stream_xspace_sharded
+
+    with timers.phase("Mode synthesis (+ f_NL phi pass)"):
+        model.sharded_fields(mesh)  # the half route's planes of this rank
+        sync()
+    with timers.phase("Inverse FFT"):
+        # the half route (B1, exchange, B2), or the full grid with its phi
+        # pass (B5, zx, exchange, y)
+        x = model.xspace_half_pair_sharded(mesh)
+        sync()
+    with timers.phase("Output"):
+        writer = OutputWriter(param) if mesh.rank == 0 else None
+        stream_xspace_sharded(x, writer, mesh)
+    del x
+    if writer is not None:
+        writer.report(model.Pk)
+        timers.report(file=sys.stderr)
+        _report_rate(param, t_total)
     return 0
 
 

@@ -28,12 +28,19 @@ rows [0, ppd/2) (ROADMAP C1) and is not ported.
 
 The stage layout ``(narray, 2, ppd, ppd, ppd)`` in the run's element type
 (float32 or float64) is byte for byte the JAX pair stage of that type, so
-either package resumes the other's PART1 stage.
+either package resumes the other's pair PART1 stage.  The port writes a
+meta file (layout, shape, dtype) beside its PART1 stage and resumes only a
+stage that matches the run (``check_stage``); a stage without one (the
+JAX package writes none) must have the run's size and the zero y-Nyquist
+planes of every pair stage, so the JAX CLI's complex ``(narray, Y, Z, X)``
+stage, which has the byte count of a float64 pair stage, is refused.
 Each streaming loop runs one slab ahead (utils/streamio.py).
 """
 
 from __future__ import annotations
 
+import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +53,15 @@ from ..utils.streamio import (
     AsyncSlabWriter, _flush_chunk, slabs_to_device, stream_to_host,
 )
 from .pipeline import Zeldovich, phi_nl
+
+
+class StageMismatch(ValueError):
+    """A PART1 stage that this run cannot resume."""
+
+
+def _meta_path(path) -> Path:
+    path = Path(path)
+    return path.with_name(path.name + ".meta.json")
 
 
 def _ysel(y0, ny):
@@ -79,13 +95,61 @@ class OutOfCoreZeldovich(Zeldovich):
         narray = p.narray if narray is None else narray
         return (narray, 2, p.ppd, p.ppd, p.ppd), self._fnp
 
-    def stage_memmap(self, path, mode="w+"):
-        """Disk-backed staging buffer at ``path`` (the PART1/2 checkpoint)."""
+    def _stage_meta(self) -> dict:
         shape, dtype = self.stage_layout()
+        return {"layout": "pair", "shape": list(shape), "dtype": np.dtype(dtype).name}
+
+    def check_stage(self, path):
+        """Raise StageMismatch unless ``path`` is a PART1 stage of this run:
+        its meta file's layout, shape and dtype are the run's and the file
+        has their size; or, with no meta file, the file has the size of
+        the run's pair stage and its y-Nyquist planes are zero, as every
+        pair stage's are (a complex stage read as pairs has values there);
+        that stage is taken as the pair layout, and one stderr line says so."""
+        path = Path(path)
+        want = self._stage_meta()
+        nbytes = int(np.prod(want["shape"])) * np.dtype(want["dtype"]).itemsize
+        layout = f"pair {want['dtype']} {tuple(want['shape'])} ({nbytes} bytes)"
+        if not path.exists():
+            raise StageMismatch(f"no PART1 stage at {path}")
+        size = path.stat().st_size
+        meta = _meta_path(path)
+        if meta.exists():
+            got = json.loads(meta.read_text())
+            if got != want:
+                raise StageMismatch(
+                    f"stage {path} holds {got.get('layout')} {got.get('dtype')} "
+                    f"{tuple(got.get('shape', ()))} but this run expects {layout}")
+            if size != nbytes:
+                raise StageMismatch(f"stage {path} is {size} bytes, want {layout}")
+            return
+        if size != nbytes:
+            raise StageMismatch(f"stage {path} has no meta file and is {size} bytes, "
+                                f"but this run expects {layout}")
+        shape, dtype = self.stage_layout()
+        nyq = np.memmap(path, dtype=dtype, mode="r", shape=shape)[:, :, shape[2] // 2]
+        if nyq.any():
+            raise StageMismatch(
+                f"stage {path} has no meta file and is not the {layout} stage this "
+                "run expects: its y-Nyquist planes are not zero (a complex (narray, "
+                "Y, Z, X) stage of the JAX package has the byte count of a float64 "
+                "pair stage)")
+        print(f"stage {path} has no meta file: assumed to be the {layout} of this run",
+              file=sys.stderr)
+
+    def stage_memmap(self, path, mode="w+"):
+        """Disk-backed staging buffer at ``path`` (the PART1/2 checkpoint):
+        "w+" writes its meta file beside it, "r" checks it (check_stage)."""
+        shape, dtype = self.stage_layout()
+        if mode == "w+":
+            _meta_path(path).write_text(json.dumps(self._stage_meta()))
+        else:
+            self.check_stage(path)
         return np.memmap(path, dtype=dtype, mode=mode, shape=shape)
 
     def cleanup_stage_memmap(self, path):
         Path(path).unlink(missing_ok=True)
+        _meta_path(path).unlink(missing_ok=True)
 
     def _alloc_stage(self, narray, name="zeldovich.stage"):
         shape, dtype = self.stage_layout(narray)

@@ -18,6 +18,9 @@ has an instance of each).  The forward step takes one of two routes:
   B4 draws (every even ppd) -> ``synthesize_full_fast_pair`` ->
   ``ifft3_pair`` (B8 along y, B6/B7 over z and x where the kernels take
   ppd, the matrix products elsewhere), with the f_NL phi pass in front.
+
+The sharded steps (``*_sharded(mesh)``, ``parallel/``) return this rank's
+slab of the same grids over a mesh of ranks.
 """
 
 from __future__ import annotations
@@ -84,6 +87,7 @@ class Zeldovich:
                 np.stack([D.real, D.imag])).to(self.device, dtype)
         self._pk_eff = None
         self._plt_coefs = None
+        self._rank_fields = (None, None, None)  # (planes, pk_eff, plt_coefs)
 
     @property
     def half_exact(self) -> bool:
@@ -180,6 +184,93 @@ class Zeldovich:
         place; of ``kpair`` (a loaded PART1 grid) when given."""
         k = self.kspace_pair(plain) if kpair is None else kpair
         return ifft3_pair(k, out=k, plain=plain)
+
+    # -- sharded phases (a mesh of ranks, parallel/) --------------------
+    def check_sharded(self, mesh):
+        """Raise where the sharded steps cannot run this configuration on
+        ``mesh``: NotImplementedError for ZD_Version=1 (host-generated, no
+        sharded path), ValueError where the ranks do not divide ppd."""
+        from ..parallel.pencil_mmfft import check_grid
+
+        if self._D_source is not None:
+            raise NotImplementedError(
+                "ZD_Version=1 is host-generated; use the single-host "
+                "complex pipeline"
+            )
+        check_grid(self.cfg.ppd, mesh)
+
+    def kspace_pair_sharded(self, mesh):
+        """This rank's y-slab [r Yl, (r+1) Yl) of the full k-grid,
+        ``(narray, 2, Yl, Z, X)``, Yl = ppd / world: B5 at the slab's
+        source modes, after the f_NL phi pass where f_NL != 0."""
+        from ..parallel.pencil_mmfft import fft3_pair_sharded, ifft3_pair_sharded
+        from ..parallel.synthesis import synthesize_sharded_pair
+
+        self.check_sharded(mesh)
+        p = self.param
+        phi = None
+        if p.f_NL != 0:
+            phi = synthesize_sharded_pair(self.cfg, self.tables, self.dtype, mesh,
+                                          gen_phi=True)
+            phi = ifft3_pair_sharded(phi, mesh)
+            phi_nl(phi, p.f_NL, 1.0 / p.ppd**3)
+            phi = fft3_pair_sharded(phi, mesh)[0]
+        return synthesize_sharded_pair(self.cfg, self.tables, self.dtype, mesh,
+                                       phi_pair=phi)
+
+    def xspace_pair_sharded(self, mesh, kpair=None):
+        """The full-grid forward step over ``mesh``: this rank's z-slab
+        ``(narray, 2, Y, Zl, X)`` of x space, Zl = ppd / world, from its
+        y-slab of ``kpair`` (``kspace_pair_sharded``'s, made when not
+        given; transformed in place)."""
+        from ..parallel.pencil_mmfft import ifft3_pair_sharded
+
+        k = self.kspace_pair_sharded(mesh) if kpair is None else kpair
+        return ifft3_pair_sharded(k, mesh)
+
+    def half_route_sharded(self) -> bool:
+        """Whether the sharded step takes the half route (B1, B2): a
+        ``half_exact`` configuration at a ppd the FFT kernels take."""
+        return self.half_exact and fft_kernels_take(self.cfg.ppd)
+
+    def sharded_fields(self, mesh):
+        """(pk_eff, plt_coefs) of this rank's generated planes on the half
+        route, cached ((None, None) where it has none); None on the full
+        grid."""
+        from ..parallel.pencil_mmfft import ky_planes
+
+        if not self.half_route_sharded():
+            return None
+        rows = ky_planes(self.cfg.ppd, mesh)
+        if rows == (0, self.cfg.ppd // 2):
+            return self.pk_eff, self.plt_coefs
+        if self._rank_fields[0] != rows:
+            pk = coefs = None
+            if rows[1] > rows[0]:
+                pk = pk_effective(self.cfg, self.tables, self.dtype, rows=rows)
+                if self.param.qPLT:
+                    coefs = plt_coef_fields(self.cfg, self.tables, self.dtype, rows=rows)
+            self._rank_fields = (rows, pk, coefs)
+        return self._rank_fields[1:]
+
+    def xspace_half_pair_sharded(self, mesh):
+        """The sharded forward step: this rank's z-slab
+        ``(narray, 2, Y, Zl, X)`` of x space, Zl = ppd / world.
+
+        The half route (B1 on the rank's ky planes, one exchange, B2 on
+        its z-slab) where ``half_route_sharded``; elsewhere the full grid
+        (``xspace_pair_sharded``: B5, zx, the exchange, y), as the JAX
+        package falls back for the configurations the half spectrum cannot
+        represent.  ZD_Version=1 has no sharded path (host-generated).
+        """
+        from ..parallel.pencil_mmfft import xspace_half_pair_sharded
+
+        self.check_sharded(mesh)
+        if not self.half_route_sharded():
+            return self.xspace_pair_sharded(mesh)
+        pk, coefs = self.sharded_fields(mesh)
+        return xspace_half_pair_sharded(self.cfg, self.tables, pk, coefs, mesh,
+                                        self.dtype)
 
     def run_pair(self, setup_dir: bool = True) -> OutputWriter:
         """Full run: forward step, streamed output, QA report."""

@@ -18,6 +18,9 @@ layout (narray, 2, Y, Z, X), and of the out-of-core streaming loops
   ``_flush_chunk`` from ``zeldovich_tpu/utils/streamio.py``), so the ic_*
   bytes are produced by the same code from the same values.
 
+* ``stream_xspace_sharded(x, writer, mesh)``: the z-slabs of a sharded
+  step, every rank's through rank 0's writer in z order (rank order).
+
 On the CPU both directions are plain host copies.
 """
 
@@ -189,6 +192,45 @@ def stream_xspace(x, writer):
         items = ((z0, x[:, :, :, z0:z0 + chunk, :].contiguous())
                  for z0 in range(0, ppd, chunk))
         stream_to_host(items, lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
+    finally:
+        aw.close()
+    return writer
+
+
+def stream_xspace_sharded(x, writer, mesh):
+    """Write the x space of a sharded step through rank 0's writer.
+
+    x is this rank's z-slab (narray, 2, Y, Zl, X).  Rank 0 streams its own
+    slab as ``stream_xspace`` does, then each other rank's in rank order (=
+    z order): chunks of z planes received with ``dist.recv`` into one
+    device buffer and streamed through the same ``AsyncSlabWriter``; the
+    other ranks send theirs in the same chunks.  ``writer`` is rank 0's
+    (None on the others); closes it.
+    """
+    import torch.distributed as dist
+
+    narray, _, ppd, zl, _ = x.shape
+    chunk = _chunk_planes(x.shape, x.element_size(), ppd, True, 256 << 20)
+    while zl % chunk:
+        chunk -= 1
+    if mesh.rank != 0:
+        for z0 in range(0, zl, chunk):
+            dist.send(x[:, :, :, z0:z0 + chunk].contiguous(), 0, group=mesh.group)
+        return None
+
+    def items():
+        for z0 in range(0, zl, chunk):
+            yield z0, x[:, :, :, z0:z0 + chunk].contiguous()
+        buf = torch.empty((narray, 2, ppd, chunk, ppd), dtype=x.dtype, device=x.device)
+        for r in range(1, mesh.world):
+            for z0 in range(0, zl, chunk):
+                dist.recv(buf, r, group=mesh.group)
+                # a copy the stream may keep while buf takes the next chunk
+                yield r * zl + z0, buf.clone()
+
+    aw = AsyncSlabWriter(writer)
+    try:
+        stream_to_host(items(), lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
     finally:
         aw.close()
     return writer
