@@ -81,7 +81,7 @@ script exits non-zero without printing a result:
    plain and PLT, 512^3 f_NL, 256^3 CornerModes with k_cutoff = 2,
    128^3 ZD_Version=1; --out-of-core at 256^3 plain (RAM stage) and
    128^3 f_NL + PLT (disk stage), each held particle by particle against
-   its in-core run, and 512^3 f_NL; the separate-kernel half route
+   its in-core run, and 256^3 f_NL; the separate-kernel half route
    through the model API (kspace_half_pair -> xspace_half_pair) at 256^3
    against the fused run; --part 1 then --part 2 at 128^3, in core and
    out of core, against the one-shot run.  Each run must launch the
@@ -113,9 +113,9 @@ script exits non-zero without printing a result:
    float64: (a) the CLI with --sharded over every card (NCCL; one card:
    one rank in this process, its launch counters reset just before each
    run and read just after) against a one-rank CLI run of the same
-   arithmetic, every ic_* byte: 512^3 plain and 128^3 PLT against the
+   arithmetic, every output byte: 512^3 plain and 128^3 PLT against the
    in-core run (the half route: B1 and B2), 256^3 f_NL (RVdoubleZel) and
-   576^3 plain against --out-of-core (the full grid: B5, zx, y or the
+   576^3 density only against --out-of-core (the full grid: B5, zx, y or the
    matrix products, z/x before y); (b) two ranks sharing card 0 over a
    gloo group (started with the spawn method), through the model API at
    256^3 plain (half route) and f_NL and at 192^3 (full grid on the
@@ -129,7 +129,31 @@ script exits non-zero without printing a result:
    one-device step, their peak memory.  With more than one card (a) and
    (c) start a process a card (the spawn method, the environment torchrun
    gives its ranks) and every rank's launch counters are read and checked.
-   ``python3 chip_smoke.py --only sharded`` runs phases 1 and 12 alone.
+   ``python3 chip_smoke.py --only sharded`` runs phases 1, 12 and 13 alone.
+13. several processes and sharded out of core (``--distributed``,
+   zeldovich_tpu_torch/parallel/multihost.py and outofcore.py,
+   ``DistributedOutOfCore``), in float64: (a) the CLI with --distributed
+   over every card (NCCL; one card: one process joined over the loopback
+   triple --coordinator 127.0.0.1:P --num-processes 1 --process-id 0; more:
+   a process a card, each with its triple), every output byte against the
+   one-device run of the same arithmetic (shared with phase 12a): 512^3
+   plain in core against the in-core run; 256^3 f_NL (RVdoubleZel) in core,
+   --part 1 then --part 2 at 256^3, --out-of-core at 256^3 plain and f_NL,
+   576^3 (density only, the products) and --out-of-core --part 1/2 at
+   256^3, against --out-of-core; every rank's launch counters reset just
+   before each run, read just after and checked; (b) two ranks sharing
+   card 0 over gloo (spawned), through the model API:
+   DistributedOutOfCore at 256^3 plain and f_NL (each rank launches B5, zx
+   and y and stages half the grid; their z-slabs bit for bit the one-device
+   out-of-core step's), and save_sharded -> load_sharded of the 192^3
+   k-space y-slabs (the one-device synthesis bit for bit); (c) 1024^3
+   float32 DistributedOutOfCore over every card (one card: one rank over
+   NCCL): pass 1, pass 2 without the writer, the exchange's share of pass
+   2, the stage a rank, the peak device memory; with more than one card
+   the Output phase of --distributed against --sharded's rank-0 writer at
+   512^3 (RVZel) and 1024^3 (ZelSimple), in core; (d) on one card, two
+   --distributed processes joined over the triple share card 0: NCCL must
+   refuse them (both exit non-zero naming the duplicate GPU), no gloo.
 
 Phases 2 to 8 run twice, in float32 and in float64 (the double instances
 of every kernel: against the plain versions to 1e-12 of the largest value
@@ -277,17 +301,24 @@ def tol_for(dt: str, f32_tol: float) -> float:
     return f32_tol if dt == "float32" else F64_TOL
 
 
+def _param_for(ppd, plt=False, **extra):
+    """The Parameters of par_text(ppd, ..., plt, **extra)."""
+    from zeldovich_tpu_torch.utils.params import Parameters
+
+    tmp = Path(tempfile.mkdtemp(prefix="zt_param_"))
+    try:
+        (tmp / "m.par").write_text(par_text(ppd, tmp / "ic", plt, **extra))
+        return Parameters.from_file(tmp / "m.par")
+    finally:
+        shutil.rmtree(tmp)
+
+
 def model_for(ppd, plt, device="cuda", dt="float32", **extra):
     import torch
 
-    from zeldovich_tpu_torch.models.pipeline import Parameters, Zeldovich
+    from zeldovich_tpu_torch.models.pipeline import Zeldovich
 
-    tmp = Path(tempfile.mkdtemp(prefix="zt_model_"))
-    try:
-        (tmp / "m.par").write_text(par_text(ppd, tmp / "ic", plt, **extra))
-        param = Parameters.from_file(tmp / "m.par")
-    finally:
-        shutil.rmtree(tmp)
+    param = _param_for(ppd, plt, **extra)
     with contextlib.redirect_stderr(io.StringIO()):
         return Zeldovich(param, dtype=getattr(torch, dt), device=device)
 
@@ -924,7 +955,7 @@ def _time(fn, reps=5):
     return a.elapsed_time(b) / reps
 
 
-def _turns(kernel_fn, plain_fn, rounds=3, library=None, reps=5):
+def _turns(kernel_fn, plain_fn, rounds=2, library=None, reps=5):
     """Medians over rounds of plain, kernel, kernel, plain (after warm-up),
     and of the library call's where one is given (then a third entry)."""
     import statistics
@@ -1364,8 +1395,9 @@ def _run_cli(par: Path, *flags) -> dict | None:
     if "--part" in flags and flags[flags.index("--part") + 1] == "1":
         return None
     rms = float(re.search(r"pixels is (\S+)", text).group(1))
-    disp = re.search(r"displacements are \((\S+), (\S+), (\S+)\)", text).groups()
-    qa = {"rms": rms, "max_disp": [float(v) for v in disp]}
+    disp = re.search(r"displacements are \((\S+), (\S+), (\S+)\)", text)
+    # a density-only run (ZD_qdensity = 2) reports no displacement
+    qa = {"rms": rms, "max_disp": [float(v) for v in disp.groups()] if disp else []}
     check(all(math.isfinite(v) for v in [rms, *qa["max_disp"]]), f"QA {qa}")
     return qa
 
@@ -1455,7 +1487,7 @@ RUNS = (
     ("ooc_plain256", 256, False, {}, [OOC_FLAGS], OOC, "plain256", F32),
     ("ooc_fnl_plt128", 128, True, FNL, [OOC_FLAGS + ["--backing", "disk"]], OOC,
      "fnl_plt128", F32),
-    ("ooc_fnl512", 512, False, FNL, [OOC_FLAGS], OOC, None, F32),
+    ("ooc_fnl256", 256, False, FNL, [OOC_FLAGS], OOC, None, F32),
     ("part_plt128", 128, True, {}, PART, FULL, "plt128", F32),
     ("part_ooc_plt128", 128, True, {}, [OOC_FLAGS + f for f in PART], OOC, "plt128", F32),
     ("f64_example", 128, True, {}, [[]], HALF, None, F64),  # example.par as it stands
@@ -2080,7 +2112,9 @@ SHARDED_CLI = (
     ("sharded_plt128", 128, True, {}, [], HALF),
     # the full grid runs z/x before y, as the out-of-core run does
     ("sharded_fnl256", 256, False, dict(FNL, **DOUBLES), OOC_FLAGS, OOC),
-    ("sharded_576", 576, False, {}, OOC_FLAGS, ("boxmuller",)),
+    # density only: the full grid's path on the products, its 0.76 GB
+    # density file compared where the RVZel run wrote 6.1 GB of ic_*
+    ("sharded_576", 576, False, dict(ZD_qdensity="2"), OOC_FLAGS, ("boxmuller",)),
 )
 #: (b) two ranks sharing the card over gloo, through the model API:
 #: name, ppd, extra keys, the kernels each rank must launch
@@ -2144,13 +2178,25 @@ def _gloo_rank(rank, world, store, out):
 
 
 def _cli_job(argv):
-    """A rank's CLI run: its exit code and its launch counts, reset just
-    before the run and read just after."""
+    """A rank's CLI run: its exit code, its launch counts (reset just
+    before the run and read just after) and its phases' seconds."""
     from zeldovich_tpu_torch import cli, kernels
 
+    err = io.StringIO()
     kernels.reset_launches()
-    rc = cli.main(argv)
-    return {"rc": rc, "launches": dict(kernels.launches)}
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    text = err.getvalue()
+    if rc:
+        print(text[-4000:], file=sys.stderr)
+    return {"rc": rc, "launches": dict(kernels.launches), "phases": {
+        m.group(1): float(m.group(2))
+        for m in re.finditer(r"^\s*(.+?) took ([0-9.]+) seconds", text, re.M)}}
+
+
+def _triple(port, world, rank) -> list:
+    return ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world),
+            "--process-id", str(rank)]
 
 
 def _timing_job(ppds):
@@ -2174,7 +2220,10 @@ def _card_rank(rank, world, port, out, job, arg):
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     sys.path.insert(0, str(ROOT))
-    res = {"cli": _cli_job, "timing": _timing_job}[job](arg)
+    jobs = {"cli": _cli_job, "timing": _timing_job, "ooc_timing": _ooc_timing_job,
+            # --distributed over the loopback triple (the environment aside)
+            "dcli": lambda argv: _cli_job(argv + _triple(port, world, rank))}
+    res = jobs[job](arg)
     (Path(out) / f"r{rank}.json").write_text(json.dumps(res))
 
 
@@ -2220,17 +2269,51 @@ def _sharded_cli(tmp: Path, total: dict):
             _check_launches(f"{name} rank {r}", launches, want)
             for k, v in launches.items():
                 total[k] += v
-        one = _write_par(tmp, f"{name}_one", ppd, plt, extra)
-        _run_cli(one, *one_flags)
-        fmt = extra.get("ICFormat", "RVZel").strip('"')
-        files = _ic_files(tmp / name, ppd, cpd_for(ppd), fmt)
-        for f in files:
-            check(f.read_bytes() == (tmp / f"{name}_one" / f.name).read_bytes(),
-                  f"{name}: {f.name} differs from the one-rank run")
-        say(f"  {len(files)} ic_* files byte for byte the one-rank run's")
+        _same_outputs(tmp / name, _reference(ppd, plt, extra, one_flags), name)
         shutil.rmtree(tmp / name)
-        shutil.rmtree(tmp / f"{name}_one")
         torch.cuda.empty_cache()
+
+
+#: one-device reference runs of phases 12a and 13a, made once and shared:
+#: (ppd, PLT, extra keys, flags) -> output directory
+_REFS: dict = {}
+
+
+def _reference(ppd, plt, extra, flags) -> Path:
+    """The output directory of the one-device CLI run (float64) of these
+    keys and flags, run the first time it is asked for."""
+    key = (ppd, plt, tuple(sorted(extra.items())), tuple(flags))
+    if key not in _REFS:
+        if not _REFS:
+            _REFS["tmp"] = Path(tempfile.mkdtemp(prefix="zt_refs_"))
+        name = f"ref{len(_REFS)}"
+        say(f"-- one-device reference {name}: {ppd}^3 {'PLT' if plt else 'plain'} f64 "
+            f"{extra or ''} {' '.join(flags)}")
+        _run_cli(_write_par(_REFS["tmp"], name, ppd, plt, extra), *flags)
+        _REFS[key] = _REFS["tmp"] / name
+    return _REFS[key]
+
+
+def _drop_references():
+    if "tmp" in _REFS:
+        shutil.rmtree(_REFS["tmp"], ignore_errors=True)
+    _REFS.clear()
+
+
+def _same_outputs(got: Path, want: Path, name: str):
+    """Every output file of run `name` (ic_* and density) byte for byte
+    the reference's, and the same set of files."""
+    names = sorted(f.name for f in want.iterdir()
+                   if f.name.startswith(("ic_", "density")))
+    check(names and names == sorted(f.name for f in got.iterdir()
+                                    if f.name.startswith(("ic_", "density"))),
+          f"{name}: files {sorted(f.name for f in got.iterdir())}, want {names}")
+    nbytes = 0
+    for n in names:
+        a, b = (got / n).read_bytes(), (want / n).read_bytes()
+        check(a == b, f"{name}: {n} differs from the one-device run")
+        nbytes += len(a)
+    say(f"  {len(names)} output files, {nbytes} bytes, byte for byte the one-device run's")
 
 
 def _sharded_gloo(tmp: Path) -> dict:
@@ -2367,12 +2450,344 @@ def phase_sharded():
     return total
 
 
+#: phase 13 (a): the CLI with --distributed over every card (NCCL; one
+#: card: one process joined over the loopback triple), float64, against the
+#: one-device run of the same arithmetic, every output byte: name, ppd, PLT,
+#: extra keys, each run's flags (with --distributed), the one-device run's
+#: flags, the kernels each run must launch.  The out-of-core runs take
+#: 64 MB slabs, several lockstep steps a rank; their reference the CLI's
+#: 2048 MB ones.
+SLABS64 = ["--out-of-core", "--slab-mb", "64"]
+MULTIHOST_CLI = (
+    ("dist_plain512", 512, False, {}, [[]], [], [HALF]),
+    ("dist_fnl256", 256, False, dict(FNL, **DOUBLES), [[]], OOC_FLAGS, [OOC]),
+    ("dist_part256", 256, False, {}, PART, OOC_FLAGS, [("boxmuller",), TRANSFORMS]),
+    ("dist_ooc256", 256, False, {}, [SLABS64], OOC_FLAGS, [OOC]),
+    ("dist_ooc_fnl256", 256, False, dict(FNL, **DOUBLES), [SLABS64], OOC_FLAGS, [OOC]),
+    ("dist_ooc576", 576, False, dict(ZD_qdensity="2"), [SLABS64], OOC_FLAGS,
+     [("boxmuller",)]),
+    ("dist_ooc_part256", 256, False, {}, [SLABS64 + p for p in PART], OOC_FLAGS,
+     [("boxmuller", "zx_dft"), ("y_dft",)]),
+)
+#: (b) two ranks sharing card 0 over gloo, DistributedOutOfCore through the
+#: model API (float64, 32 MB slabs of 16 rows: 8 lockstep steps a rank)
+MULTIHOST_GLOO = (("ooc256", 256, {}), ("ooc_fnl256", 256, FNL))
+GLOO_SLAB = 32 << 20
+
+
+def _multihost_cli(tmp: Path, total: dict):
+    """(a): each MULTIHOST_CLI run with --distributed over every card against
+    its one-device run, byte for byte; each rank's launches, checked and
+    added into total."""
+    import socket
+
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+
+    cards = torch.cuda.device_count()
+    for name, ppd, plt, extra, runs, one_flags, wants in MULTIHOST_CLI:
+        par = _write_par(tmp, name, ppd, plt, extra)
+        for i, (flags, want) in enumerate(zip(runs, wants)):
+            argv = [str(par), "--distributed", *flags]
+            say(f"-- {name}: {ppd}^3 f64 {extra or ''} {' '.join(argv[1:])} over {cards} "
+                f"card(s)")
+            if cards == 1:  # one process over NCCL, joined with the triple
+                with socket.socket() as sk:
+                    sk.bind(("127.0.0.1", 0))
+                    port = sk.getsockname()[1]
+                kernels.reset_launches()
+                _run_cli(*argv, *_triple(port, 1, 0))
+                ranks = [dict(kernels.launches)]
+            else:  # a process a card
+                res = _card_ranks(cards, "dcli", argv, tmp, 600)
+                check(all(r["rc"] == 0 for r in res), f"{name}: ranks exited {res}")
+                ranks = [r["launches"] for r in res]
+            for r, launches in enumerate(ranks):
+                _check_launches(f"{name} run {i + 1} rank {r}", launches, want)
+                for k, v in launches.items():
+                    total[k] += v
+        left = [f.name for f in (tmp / name).iterdir() if f.name.startswith("zeldovich.")]
+        check(not left, f"{name} left {left} behind")
+        _same_outputs(tmp / name, _reference(ppd, plt, extra, one_flags), name)
+        shutil.rmtree(tmp / name)
+        torch.cuda.empty_cache()
+
+
+def _nccl_same_card(tmp: Path) -> dict:
+    """(d) one card: two --distributed processes over the loopback triple
+    land on card 0 both (process id % 1).  NCCL refuses them: both must exit
+    non-zero within 120 s with NCCL's "Duplicate GPU", rank 0 having said it
+    runs over NCCL; neither falls back to gloo."""
+    import socket
+
+    par = _write_par(tmp, "same_card", 64, False, {})
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "zeldovich_tpu_torch", str(par), "--distributed",
+         *_triple(port, 2, i)], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for i in range(2)]
+    t0 = time.perf_counter()
+    try:
+        errs = [p.communicate(timeout=120)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    say(f"-- two --distributed processes on one card: exit codes {rcs} after {secs:.1f} s")
+    check(all(rc != 0 for rc in rcs), f"two NCCL ranks on one card exited {rcs}")
+    check(all("Duplicate GPU" in e for e in errs),
+          "two NCCL ranks on one card did not fail in NCCL:\n" + errs[0][-2000:])
+    check("(nccl, cuda:0)" in errs[0] and "gloo" not in errs[0] + errs[1],
+          "a rank on the card left NCCL")
+    shutil.rmtree(tmp / "same_card", ignore_errors=True)
+    return {"exit_codes": rcs, "seconds": secs}
+
+
+def _ooc_model(param, mesh, dt="float64", slab_bytes=GLOO_SLAB, backing="ram"):
+    import torch
+
+    from zeldovich_tpu_torch.models.outofcore import DistributedOutOfCore
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        return DistributedOutOfCore(param, mesh, dtype=getattr(torch, dt),
+                                    slab_bytes=slab_bytes, backing=backing)
+
+
+def _multihost_gloo_rank(rank, world, store, out):
+    """Phase 13b's rank on card 0 over a gloo group: DistributedOutOfCore's
+    passes for MULTIHOST_GLOO (its x-space z-slabs and launch counts into
+    out), then save_sharded -> load_sharded of its 192^3 k-space y-slab."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.parallel.mesh import make_mesh
+    from zeldovich_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300))
+    try:
+        mesh = make_mesh("cuda:0", group=dist.group.WORLD)
+        kernels.library()
+        res = {}
+        for name, ppd, extra in MULTIHOST_GLOO:
+            m = _ooc_model(_param_for(ppd, **extra), mesh)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            stage = m.stage_pass1()
+            slabs = {z0: z.cpu() for z0, z in m.pass2(stage)}
+            torch.cuda.synchronize()
+            res[name] = {"launches": dict(kernels.launches), "stage": list(stage.shape),
+                         "steps": len(slabs)}
+            torch.save(slabs, Path(out) / f"{name}.r{rank}.pt")
+            del m, stage, slabs
+        z = model_for(192, False, device=mesh.device, dt=F64)
+        k = z.kspace_pair_sharded(mesh)
+        save_sharded(k, Path(out) / "ckpt", mesh)
+        back = load_sharded(Path(out) / "ckpt", mesh, (2, 2, 192, 192, 192), "float64",
+                            mesh.device)
+        res["checkpoint_round_trip"] = bool(torch.equal(back, k))
+        torch.save(k.cpu(), Path(out) / f"k192.r{rank}.pt")
+        (Path(out) / f"r{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _multihost_gloo(tmp: Path) -> dict:
+    """(b): two ranks share card 0 over gloo; each must launch B5, zx and y
+    and hold half the stage, and their z-slabs are the one-device
+    out-of-core step's bit for bit; the sharded checkpoint round-trips."""
+    import multiprocessing
+
+    import torch
+
+    from zeldovich_tpu_torch.models.outofcore import OutOfCoreZeldovich
+    from zeldovich_tpu_torch.ops.modes_real import synthesize_pair
+
+    say("-- two ranks on one card over gloo: DistributedOutOfCore and the sharded "
+        "checkpoint through the model API (float64)")
+    ctx = multiprocessing.get_context("spawn")
+    _run_ranks([ctx.Process(target=_multihost_gloo_rank,
+                            args=(r, 2, str(tmp / "store"), str(tmp)))
+                for r in range(2)], 300, "gloo")
+    ranks = [json.loads((tmp / f"r{r}.json").read_text()) for r in range(2)]
+    res = {}
+    for name, ppd, extra in MULTIHOST_GLOO:
+        for r, got in enumerate(ranks):
+            _check_launches(f"{name} rank {r}", got[name]["launches"], OOC)
+            check(got[name]["stage"][2] == ppd // 2,
+                  f"{name} rank {r}: stage {got[name]['stage']} is not half the grid")
+        with contextlib.redirect_stderr(io.StringIO()):
+            one = OutOfCoreZeldovich(_param_for(ppd, **extra), dtype=torch.float64,
+                                     slab_bytes=GLOO_SLAB, device="cuda")
+        want = {z0: z.cpu() for z0, z in one.pass2(one.stage_pass1())}
+        got = {}
+        for r in range(2):
+            got.update(torch.load(tmp / f"{name}.r{r}.pt"))
+        same = got.keys() == want.keys() and all(torch.equal(got[z], want[z]) for z in want)
+        say(f"  {name}: {len(want)} z-slabs of 2 ranks (stages {ranks[0][name]['stage']}, "
+            f"{ranks[0][name]['steps']} steps a rank) vs the one-device out-of-core "
+            f"step: bit-equal {same}")
+        check(same, f"{name}: the ranks' z-slabs differ from the one-device step")
+        res[name] = {"launches": [rk[name]["launches"] for rk in ranks],
+                     "stage": ranks[0][name]["stage"], "bit_equal": same}
+        del one, want, got
+        torch.cuda.empty_cache()
+    k = torch.cat([torch.load(tmp / f"k192.r{r}.pt") for r in range(2)], dim=2)
+    m = model_for(192, False, dt=F64)
+    ref = synthesize_pair(0, 192, m.cfg, m.tables, torch.float64).cpu()
+    same = bool(torch.equal(k, ref)) and all(rk["checkpoint_round_trip"] for rk in ranks)
+    say(f"  192^3 k space: save_sharded -> load_sharded on both ranks, their y-slabs "
+        f"the one-device synthesis (B5): {same}")
+    check(same, "sharded checkpoint round trip")
+    res["checkpoint"] = same
+    return res
+
+
+def _ooc_timing_job(ppd):
+    """(c) on this rank's card: DistributedOutOfCore at ppd^3 plain float32
+    (the CLI's 2048 MB slabs): pass 1, pass 2 without the writer (to the
+    host, one slab ahead), the exchange alone at pass 2's shapes and steps,
+    the stage a rank, the peak device memory; the largest over the ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from zeldovich_tpu_torch.parallel.mesh import make_mesh
+    from zeldovich_tpu_torch.parallel.outofcore import zslab_from_rows
+    from zeldovich_tpu_torch.utils.streamio import stream_to_host
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        mesh = make_mesh("cuda")
+    try:
+        tmp = Path(tempfile.mkdtemp(prefix="zt_mh_ooc_"))
+        need = 2 * 2 * ppd**3 * 4 // mesh.world
+        ram, disk = _host_space(tmp)
+        backing = "ram" if ram > need + (16 << 30) else "disk"
+        m = _ooc_model(_param_for(ppd, InitialConditionsDirectory=f'"{tmp / "ic"}"'),
+                       mesh, dt=F32, slab_bytes=2048 << 20, backing=backing)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        stage = m.stage_pass1()
+        torch.cuda.synchronize()
+        pass1 = time.perf_counter() - t0
+        mesh.barrier()
+        finite = []
+        t0 = time.perf_counter()
+        stream_to_host(m.pass2(stage), lambda z0, h: finite.append(
+            bool(np.isfinite(h[:, :, ::97, :, ::97]).all())))
+        pass2 = time.perf_counter() - t0
+        check(finite and all(finite), "1024^3 pass 2: non-finite z-slab")
+        peak = torch.cuda.max_memory_allocated()
+        na, w, yl = m.cfg.narray, mesh.world, ppd // mesh.world
+        rows = torch.rand((na, 2, yl, w, m.slab, ppd), device=mesh.device)
+        zslab_from_rows(rows, mesh)  # warm-up
+        ex_ms = sorted(_time(lambda: zslab_from_rows(rows, mesh), 3) for _ in range(3))[1]
+        steps = len(finite)
+        vals = torch.tensor([pass1, pass2, ex_ms, steps * ex_ms / 1e3, stage.nbytes / 1e9,
+                             peak / 2**30], dtype=torch.float64, device=mesh.device)
+        dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=mesh.group)
+        v = vals.tolist()
+        res = {"ppd": ppd, "world": mesh.world, "backend": mesh.backend, "backing": backing,
+               "slab": m.slab, "steps": steps, "pass1_s": v[0], "pass2_s": v[1],
+               "exchange_ms_a_step": v[2], "exchange_s": v[3],
+               "exchange_share_of_pass2": v[3] / v[1], "stage_gb_a_rank": v[4],
+               "peak_gib": v[5]}
+        del stage, rows
+        shutil.rmtree(tmp, ignore_errors=True)
+        return res
+    finally:
+        mesh.close()
+
+
+#: (c) with more than one card: the Output phase of --distributed (each
+#: rank its own planes) against --sharded (rank 0 writes every slab), in
+#: core, float64: ppd, .par keys (1024^3 in ZelSimple: 12.9 GB of ic_* a
+#: run where RVZel would write 34.4 GB)
+OUTPUT_RUNS = ((512, {}), (1024, dict(ICFormat='"ZelSimple"')))
+
+
+def _output_phases(tmp: Path, cards: int) -> list:
+    res = []
+    for ppd, extra in OUTPUT_RUNS:
+        row = {"ppd": ppd, "format": extra.get("ICFormat", "RVZel").strip('"')}
+        for mode, job in (("--sharded", "cli"), ("--distributed", "dcli")):
+            name = f"out{ppd}{mode.strip('-')}"
+            par = _write_par(tmp, name, ppd, False, extra)
+            rk = _card_ranks(cards, job, [str(par), mode], tmp, 900)
+            check(all(r["rc"] == 0 for r in rk), f"{name}: ranks exited {rk}")
+            row[mode.strip("-")] = {k: rk[0]["phases"].get(k) for k in (
+                "Mode synthesis (+ f_NL phi pass)", "Inverse FFT", "Output")}
+        _same_outputs(tmp / f"out{ppd}distributed", tmp / f"out{ppd}sharded",
+                      f"{ppd}^3 --distributed vs --sharded")
+        for mode in ("sharded", "distributed"):
+            shutil.rmtree(tmp / f"out{ppd}{mode}")
+        say(f"  {ppd}^3 {row['format']} over {cards} cards, rank 0's phases (s): "
+            f"--sharded {row['sharded']}, --distributed {row['distributed']}")
+        res.append(row)
+    return res
+
+
+def phase_multihost():
+    """Phase 13: several processes (--distributed), the sharded checkpoints
+    and DistributedOutOfCore (zeldovich_tpu_torch/parallel/multihost.py,
+    parallel/outofcore.py)."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+
+    cards = torch.cuda.device_count()
+    say(f"== phase 13: several processes and sharded out of core, on {smi()}, "
+        f"{cards} card(s)")
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="zt_multihost_"))
+    total = {k: 0 for k in kernels.launches}
+    try:
+        _multihost_cli(tmp, total)
+        _drop_references()
+        same_card = _nccl_same_card(tmp) if cards == 1 else None
+        say(f"  phase 13 at {time.perf_counter() - t0:.1f} s")
+        (tmp / "gloo").mkdir()
+        gloo = _multihost_gloo(tmp / "gloo")
+        say(f"  phase 13 at {time.perf_counter() - t0:.1f} s")
+        timing = (_ooc_timing_job(1024) if cards == 1
+                  else _card_ranks(cards, "ooc_timing", 1024, tmp, 900)[0])
+        say(f"  1024^3 f32 DistributedOutOfCore over {timing['world']} rank(s) "
+            f"({timing['backend']}, {timing['backing']} stage of "
+            f"{timing['stage_gb_a_rank']:.2f} GB a rank): pass 1 {timing['pass1_s']:.3f} s, "
+            f"pass 2 without the writer {timing['pass2_s']:.3f} s ({timing['steps']} steps "
+            f"of {timing['slab']} planes), the exchange {timing['exchange_ms_a_step']:.3f} "
+            f"ms a step, {100 * timing['exchange_share_of_pass2']:.1f}% of pass 2; peak "
+            f"{timing['peak_gib']:.2f} GiB")
+        output = _output_phases(tmp, cards) if cards > 1 else None
+    finally:
+        _drop_references()
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"  launches over the --distributed CLI runs, every rank: {total}")
+    say(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"multihost": {"launches": total, "same_card": same_card,
+                                  "gloo": gloo, "timing": timing, "output": output}}))
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on the GPU.")
     ap.add_argument("--only", choices=["sharded"],
-                    help="phases 1 and 12 alone (no kernel summary)")
+                    help="phases 1, 12 and 13 alone (no kernel summary)")
     args = ap.parse_args(argv)
     if not (ROOT / "zeldovich_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2392,7 +2807,8 @@ def main(argv=None) -> int:
     phase_card()
     if args.only == "sharded":
         phase_sharded()
-        say(f"phases 1 and 12 passed in {time.perf_counter() - t0:.1f} s")
+        phase_multihost()
+        say(f"phases 1, 12 and 13 passed in {time.perf_counter() - t0:.1f} s")
         say(smi())
         return 0
     phase_eigmodes()
@@ -2415,6 +2831,8 @@ def main(argv=None) -> int:
     stamp("phase 11")
     sharded = phase_sharded()
     stamp("phase 12")
+    multihost = phase_multihost()
+    stamp("phase 13")
     card = smi()
 
     def entry(dt, name, source, replaces, err, ms, **more):
@@ -2431,6 +2849,7 @@ def main(argv=None) -> int:
                 # phase 11's and 12's CLI runs are float64: no float32 count
                 "launches_sizes": sizes["launches"][name] if dt == F64 else None,
                 "launches_sharded": sharded[name] if dt == F64 else None,
+                "launches_multihost": multihost[name] if dt == F64 else None,
                 "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, **b,
                 "library_ms": library_ms, **more}
 
@@ -2470,7 +2889,9 @@ def main(argv=None) -> int:
         f"{DRAW_F64_OPS} float64 ones; launches: the float32 and the float64 "
         f"end-to-end runs apart; launches_sizes: phase 11's {SIZES_N}^3 float64 CLI "
         f"runs (null in float32: none ran); launches_sharded: phase 12's float64 "
-        f"--sharded CLI runs (null in float32); at_{SIZES_N}: B3, B4, B5 at {SIZES_N}^3)")
+        f"--sharded CLI runs (null in float32); launches_multihost: phase 13's float64 "
+        f"--distributed CLI runs, every rank (null in float32); at_{SIZES_N}: B3, B4, "
+        f"B5 at {SIZES_N}^3)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"ok": True, "device": {

@@ -217,17 +217,64 @@ def test_one_rank_cli_in_process(tmp_path, capsys):
     assert _ic_bytes(tmp_path / "sharded") == _ic_bytes(tmp_path / "one")
 
 
+def _checkpoint_of_two_ranks(outdir, out_of_core):
+    """The meta files a --distributed --part 1 over two ranks leaves (the
+    in-core shard directory, or rank 0's out-of-core stage)."""
+    import json
+
+    outdir.mkdir()
+    if out_of_core:
+        meta = {"layout": "pair y-slab", "shape": [2, 2, 8, 16, 16], "dtype": "float64",
+                "world": 2, "y_range": [0, 8]}
+        (outdir / "zeldovich.kspace.mm.p0").write_bytes(bytes(8 * 2 * 2 * 8 * 16 * 16))
+        (outdir / "zeldovich.kspace.mm.p0.meta.json").write_text(json.dumps(meta))
+        return
+    ckpt = outdir / "zeldovich.kspace.ckpt"
+    ckpt.mkdir()
+    (ckpt / "meta.json").write_text(json.dumps(
+        {"shape": [2, 2, 16, 16, 16], "dtype": "<f8", "world": 2,
+         "y_ranges": [[0, 8], [8, 16]]}))
+    for r in range(2):
+        np.save(ckpt / f"shard_r{r}.npy", np.zeros((2, 2, 8, 16, 16)))
+
+
 @pytest.mark.parametrize("flags,over,says", [
-    (["--out-of-core"], {}, "ROADMAP A10b"),
-    (["--part", "1"], {}, "ROADMAP A10b"),
-    (["--part", "2"], {}, "ROADMAP A10b"),
+    (["--distributed", "--out-of-core"], dict(ZD_Version=1),
+     "ZD_Version=1 is host-generated"),
+    (["--distributed"], dict(ZD_Version=1), "ZD_Version=1 is host-generated"),
+    (["--distributed", "--part", "2"], {}, "checkpoint"),
     ([], dict(ZD_Version=1), "ZD_Version=1 is host-generated"),
 ])
 def test_sharded_refusals_exit_1(tmp_path, capsys, flags, over, says):
+    """ZD_Version=1 has no sharded path, in core or out of core; a --part 2
+    restart over one rank refuses the checkpoint two ranks cut (in core
+    here; out of core in test_restart_at_another_world_size_exits_1)."""
+    restart = "--part" in flags
+    if restart:
+        _checkpoint_of_two_ranks(tmp_path / "ic", out_of_core=False)
     par = _write_par(tmp_path / "p.par", tmp_path / "ic", **over)
     assert main([str(par), "--device", "cpu", "--sharded", *flags]) == 1
     assert says in capsys.readouterr().err
-    assert not (tmp_path / "ic").exists()  # refused before the output directory
+    if restart:  # the checkpoint stays, no particle is written
+        assert (tmp_path / "ic" / "zeldovich.kspace.ckpt" / "meta.json").exists()
+        assert not list((tmp_path / "ic").glob("ic_*"))
+    else:
+        assert not (tmp_path / "ic").exists()  # refused before the output directory
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("flags", [["--distributed", "--out-of-core"],
+                                   ["--sharded", "--out-of-core", "--slab-mb", "0"]])
+def test_restart_at_another_world_size_exits_1(tmp_path, capsys, flags):
+    """An out-of-core --part 2 over one rank refuses the stage that two
+    ranks cut, naming the checkpoint, and leaves it in place."""
+    _checkpoint_of_two_ranks(tmp_path / "ic", out_of_core=True)
+    par = _write_par(tmp_path / "p.par", tmp_path / "ic")
+    assert main([str(par), "--device", "cpu", *flags, "--part", "2"]) == 1
+    err = capsys.readouterr().err
+    assert "stage checkpoint" in err and "world 2" in err and "world 1" in err
+    assert (tmp_path / "ic" / "zeldovich.kspace.mm.p0").exists()
+    assert not list((tmp_path / "ic").glob("ic_*"))
     assert not torch.distributed.is_initialized()
 
 

@@ -37,12 +37,26 @@ checkpoint paths and exit codes.
       --nproc-per-node N -m zeldovich_tpu_torch --sharded ...``: NCCL, a
       card a rank; gloo with --device cpu), or one rank without torchrun.
       Rank 0 writes every rank's z-slab, the report and the timers; the
-      ic_* files are those of a one-rank run.  With --out-of-core or
-      --part, and ZD_Version=1, it exits 1.
+      ic_* files are those of a one-rank run.  With --part 1 rank 0
+      gathers the k-space grid into the one-device chunk directory, and
+      --part 2 reads each rank's rows of it: one-device and --sharded
+      checkpoints resume each other.
+  --distributed (implies --sharded) runs the ranks as processes on one
+      host or several, the JAX CLI's multi-host run: with --coordinator
+      HOST:PORT --num-processes N --process-id i (the three go together;
+      --coordinator implies --distributed) over tcp://HOST:PORT, or under
+      torchrun with none of them.  Each rank pwrites its own z planes into
+      the shared ic_* files and the QA statistics are reduced over the
+      ranks; rank 0 reports.  --part 1 saves each rank's y-slab of k space
+      (shard_r{rank}.npy and meta.json in zeldovich.kspace.ckpt), --part 2
+      resumes only with the same number of processes.
+  --sharded/--distributed --out-of-core stages 1/W of the grid on each
+      rank (models/outofcore.py::DistributedOutOfCore; --part 1 writes
+      zeldovich.kspace.mm.p{rank}); each rank writes its own planes.
+      ZD_Version=1 exits 1 under --sharded and --distributed.
 
-Flags of the JAX CLI that are not ported yet (--distributed,
---coordinator, --num-processes, --process-id, --profile)
-exit 1 naming the ROADMAP item that will bring them.
+--profile (not ported yet) exits 1 naming the ROADMAP item that will
+bring it.
 """
 
 from __future__ import annotations
@@ -55,10 +69,6 @@ import time
 
 #: unported flag -> (how it shows in args, ROADMAP item)
 _NOT_PORTED = {
-    "--distributed": ("distributed", "A10b (several hosts)"),
-    "--coordinator": ("coordinator", "A10b (several hosts)"),
-    "--num-processes": ("num_processes", "A10b (several hosts)"),
-    "--process-id": ("process_id", "A10b (several hosts)"),
     "--profile": ("profile", "A11 (device traces)"),
 }
 
@@ -96,12 +106,10 @@ def main(argv=None):
             print(f"{flag} is not ported to the torch package yet: ROADMAP "
                   f"{item}; use python -m zeldovich_tpu", file=sys.stderr)
             return 1
-    if args.sharded and (args.out_of_core or args.part):
-        what = "--out-of-core" if args.out_of_core else f"--part {args.part}"
-        print(f"--sharded with {what} is not ported to the torch package yet: "
-              "ROADMAP A10b (sharded checkpoints and out of core); use python -m "
-              "zeldovich_tpu", file=sys.stderr)
-        return 1
+    if args.coordinator is not None:
+        args.distributed = True
+    if args.distributed:
+        args.sharded = True
     if args.dtype == "df64":
         print("--dtype df64 runs as native float64 in the torch package (the "
               "double-float emulation is for chips without float64)",
@@ -112,6 +120,13 @@ def main(argv=None):
 
     import torch
 
+    from .parallel.mesh import check_triple
+
+    try:
+        check_triple(args.coordinator, args.num_processes, args.process_id)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 1
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (use --device cpu "
               "for the plain tensor-op route)", file=sys.stderr)
@@ -121,14 +136,16 @@ def main(argv=None):
 
     from .parallel.mesh import make_mesh
 
-    mesh = make_mesh(args.device)
+    mesh = make_mesh(args.device, coordinator=args.coordinator,
+                     num_processes=args.num_processes, process_id=args.process_id)
     try:
         # rank 0 speaks for the run; a failing rank's traceback still shows
         quiet = (contextlib.redirect_stderr(io.StringIO()) if mesh.rank
                  else contextlib.nullcontext())
         with quiet:
-            print(f"Sharded run over mesh {{'rank': {mesh.world}}} "
-                  f"({mesh.backend}, {mesh.device})", file=sys.stderr)
+            print(f"{'Distributed' if args.distributed else 'Sharded'} run over mesh "
+                  f"{{'rank': {mesh.world}}} ({mesh.backend}, {mesh.device})",
+                  file=sys.stderr)
             return _run(args, mesh, t_total)
     finally:
         mesh.close()
@@ -189,16 +206,27 @@ def _run(args, mesh, t_total):
     ckpt = param.output_path / "zeldovich.kspace.ckpt"
     ckpt_mm = param.output_path / "zeldovich.kspace.mm"
     with timers.phase("Model setup (P(k), RNG tables, eigenmodes)"):
-        if args.out_of_core:
-            from .models.outofcore import OutOfCoreZeldovich, StageMismatch
+        try:
+            if args.out_of_core:
+                from .models.outofcore import (
+                    DistributedOutOfCore, OutOfCoreZeldovich, StageMismatch,
+                )
 
-            model = OutOfCoreZeldovich(
-                param, dtype=dtype, slab_bytes=args.slab_mb << 20,
-                backing=args.backing, device=args.device,
-            )
-        else:
-            model = Zeldovich(param, dtype=dtype,
-                              device=args.device if mesh is None else mesh.device)
+                ooc = dict(dtype=dtype, slab_bytes=args.slab_mb << 20,
+                           backing=args.backing)
+                model = (OutOfCoreZeldovich(param, device=args.device, **ooc)
+                         if mesh is None else DistributedOutOfCore(param, mesh, **ooc))
+            else:
+                model = Zeldovich(param, dtype=dtype,
+                                  device=args.device if mesh is None else mesh.device)
+                if mesh is not None:
+                    model.check_sharded(mesh)
+        except (NotImplementedError, ValueError) as e:
+            if mesh is None:
+                raise
+            # ZD_Version=1, or ranks that do not divide ppd
+            print(e, file=sys.stderr)
+            return 1
         sync()
     if not (args.out_of_core or args.part or mesh or fft_kernels_take(param.ppd)) \
             and model.half_exact:
@@ -207,16 +235,12 @@ def _run(args, mesh, t_total):
         print(f"ppd {param.ppd} takes the matrix-product DFTs (the FFT kernels take "
               f"powers of two in [16, 2048]): the half-spectrum step holds "
               f"{2 * gib:5.3f} GiB (packed spectrum and output)", file=sys.stderr)
-    if mesh is not None:
-        try:
-            model.check_sharded(mesh)
-        except (NotImplementedError, ValueError) as e:
-            print(e, file=sys.stderr)
-            return 1
     if args.part != 2 and (mesh is None or mesh.rank == 0):
         setup_output_dir(param)
     if mesh is not None:
-        return _sharded_step(model, param, mesh, timers, sync, t_total)
+        mesh.barrier()  # no rank writes before rank 0 has set up the directory
+        if not args.out_of_core:
+            return _sharded_run(args, model, param, mesh, timers, sync, t_total, ckpt)
 
     if args.out_of_core:
         # streamed run (the PART boundary is the staged host buffer)
@@ -224,21 +248,25 @@ def _run(args, mesh, t_total):
             if args.part == 1:
                 stage = model.stage_pass1(stage=model.stage_memmap(ckpt_mm, "w+"))
                 stage.flush()
+                if mesh is not None:
+                    mesh.barrier()  # every rank's stage is written
                 print(f"Checkpoint written to {ckpt_mm}", file=sys.stderr)
             elif args.part == 2:
                 try:
                     stage = model.stage_memmap(ckpt_mm, "r")
                 except StageMismatch as e:
-                    print(f"{e} (part 1/2 must use the same .par and --dtype)",
-                          file=sys.stderr)
+                    same = ".par and --dtype" if mesh is None else \
+                        ".par, --dtype and number of processes"
+                    print(f"{e} (part 1/2 must use the same {same})", file=sys.stderr)
                     return 1
                 model.run(setup_dir=False, stage=stage)
                 del stage
                 model.cleanup_stage_memmap(ckpt_mm)
             else:
                 model.run(setup_dir=False)
-        timers.report(file=sys.stderr)
-        _report_rate(param, t_total)
+        if mesh is None or mesh.rank == 0:
+            timers.report(file=sys.stderr)
+            _report_rate(param, t_total, mesh if args.distributed else None)
         return 0
 
     from .utils.checkpoint import (
@@ -299,35 +327,100 @@ def _run(args, mesh, t_total):
     return 0
 
 
-def _sharded_step(model, param, mesh, timers, sync, t_total):
-    """--sharded after the model's setup: this rank's fields, its z-slab
-    of the step, and the output through rank 0's writer."""
+def _sharded_run(args, model, param, mesh, timers, sync, t_total, ckpt):
+    """--sharded/--distributed in core, after the model's setup: this
+    rank's slab of the step (of a loaded checkpoint with --part 2), and its
+    output: its own planes with --distributed, else through rank 0's
+    writer; or with --part 1 the k-space checkpoint."""
+    from .parallel.multihost import run_multihost, sharded_step
+    from .utils import checkpoint
     from .utils.output import OutputWriter
     from .utils.streamio import stream_xspace_sharded
 
-    with timers.phase("Mode synthesis (+ f_NL phi pass)"):
-        model.sharded_fields(mesh)  # the half route's planes of this rank
-        sync()
-    with timers.phase("Inverse FFT"):
-        # the half route (B1, exchange, B2), or the full grid with its phi
-        # pass (B5, zx, exchange, y)
-        x = model.xspace_half_pair_sharded(mesh)
-        sync()
-    with timers.phase("Output"):
-        writer = OutputWriter(param) if mesh.rank == 0 else None
-        stream_xspace_sharded(x, writer, mesh)
-    del x
-    if writer is not None:
+    if args.part == 1:
+        with timers.phase("Mode synthesis (+ f_NL phi pass)"):
+            kgrid = model.kspace_pair_sharded(mesh)  # this rank's y-slab
+            sync()
+        with timers.phase("Writing k-space checkpoint"):
+            save = (checkpoint.save_sharded if args.distributed
+                    else checkpoint.save_kspace_gathered)
+            save(kgrid, ckpt, mesh)
+        if mesh.rank == 0:
+            timers.report(file=sys.stderr)
+            print(f"Checkpoint written to {ckpt}", file=sys.stderr)
+        return 0
+
+    kgrid = None
+    if args.part == 2:
+        with timers.phase("Loading k-space checkpoint"):
+            try:
+                kgrid = _load_rank_rows(args, model, mesh, ckpt)
+            except checkpoint.CheckpointMismatch as e:
+                print(e, file=sys.stderr)
+                return 1
+            sync()
+    if args.distributed:
+        writer = run_multihost(model, mesh, timers, kgrid)
+    else:
+        x = sharded_step(model, mesh, timers, kgrid)
+        with timers.phase("Output"):
+            writer = OutputWriter(param) if mesh.rank == 0 else None
+            stream_xspace_sharded(x, writer, mesh)
+        del x
+    del kgrid
+    if args.part == 2:
+        mesh.barrier()  # every rank has read its rows
+        if mesh.rank == 0:
+            checkpoint.remove_kspace(ckpt)
+    if mesh.rank == 0:
         writer.report(model.Pk)
         timers.report(file=sys.stderr)
-        _report_rate(param, t_total)
+        _report_rate(param, t_total, mesh if args.distributed else None)
     return 0
 
 
-def _report_rate(param, t_total):
+def _load_rank_rows(args, model, mesh, ckpt):
+    """This rank's y-slab of the --part 1 checkpoint on its device: its
+    shard (--distributed), else its rows of the one-device chunk directory
+    (the port's pair layout or the JAX CLI's complex grid of the run's
+    precision).  CheckpointMismatch on every rank where any rank cannot
+    take it."""
+    from .parallel.pencil_mmfft import slab
+    from .utils import checkpoint
+
+    import torch
+
+    p = model.param
+    grid = (p.narray, 2, p.ppd, p.ppd, p.ppd)
+    held = "float64" if model.dtype == torch.float64 else "float32"
+    if args.distributed:
+        return checkpoint.load_sharded(ckpt, mesh, grid, held, mesh.device)
+    takes = {grid: held, (p.narray, *grid[2:]): f"complex{2 * int(held[5:])}"}
+    err = rows = None
+    try:
+        shape, dtype, _ = checkpoint.kspace_layout(ckpt)
+        if takes.get(shape) != dtype.name:
+            raise checkpoint.CheckpointMismatch(
+                f"checkpoint holds {dtype.name} {shape} but this run expects "
+                + " or ".join(f"{d} {s}" for s, d in takes.items())
+                + " (part 1/2 must use the same .par and --dtype)")
+        rows = checkpoint.load_kspace_pair(ckpt, rows=slab(p.ppd, mesh))
+    except (OSError, ValueError) as e:
+        err = e if isinstance(e, checkpoint.CheckpointMismatch) else \
+            checkpoint.CheckpointMismatch(f"no k-space checkpoint at {ckpt}: {e}")
+    if not mesh.agree(err is None):
+        raise err or checkpoint.CheckpointMismatch(
+            f"checkpoint {ckpt}: another rank cannot read its rows")
+    return torch.from_numpy(rows).to(mesh.device)
+
+
+def _report_rate(param, t_total, mesh=None):
+    """The throughput line; with the mesh of a --distributed run, its
+    processes and devices (a card a rank) as the JAX CLI prints them."""
     elapsed = time.perf_counter() - t_total
+    over = "" if mesh is None else f" ({mesh.world} processes, {mesh.world} devices)"
     print(
-        f"zeldovich took {elapsed:.4g} sec for ppd {param.ppd} ==> "
+        f"zeldovich took {elapsed:.4g} sec for ppd {param.ppd}{over} ==> "
         f"{param.np / 1e6 / elapsed:.3g} Mpart/sec",
         file=sys.stderr,
     )

@@ -35,6 +35,11 @@ JAX package writes none) must have the run's size and the zero y-Nyquist
 planes of every pair stage, so the JAX CLI's complex ``(narray, Y, Z, X)``
 stage, which has the byte count of a float64 pair stage, is refused.
 Each streaming loop runs one slab ahead (utils/streamio.py).
+
+``DistributedOutOfCore`` is the same pipeline over a mesh of ranks
+(``--sharded``/``--distributed --out-of-core``): each rank stages its
+y-slab of the grid, pass 1 runs on it alone and pass 2 exchanges each
+z-block (``parallel/outofcore.py``); every rank writes its own planes.
 """
 
 from __future__ import annotations
@@ -151,17 +156,24 @@ class OutOfCoreZeldovich(Zeldovich):
         Path(path).unlink(missing_ok=True)
         _meta_path(path).unlink(missing_ok=True)
 
+    def _stage_file(self, name) -> Path:
+        """The disk stage ``name`` (--backing disk) in the output directory."""
+        return self.param.output_path / f"{name}.mm"
+
     def _alloc_stage(self, narray, name="zeldovich.stage"):
         shape, dtype = self.stage_layout(narray)
         if self.backing == "disk":
-            path = self.param.output_path / f"{name}.mm"
+            path = self._stage_file(name)
             path.parent.mkdir(parents=True, exist_ok=True)
             return np.memmap(path, dtype=dtype, mode="w+", shape=shape)
         return np.empty(shape, dtype=dtype)
 
+    #: the first grid row the stage holds (a rank's y-slab starts later)
+    _row0 = 0
+
     def _y_sink(self, stage):
         def sink(y0, h):
-            stage[_ysel(y0, self.slab)] = h
+            stage[_ysel(y0 - self._row0, self.slab)] = h
         return sink
 
     def _slab_starts(self):
@@ -220,7 +232,7 @@ class OutOfCoreZeldovich(Zeldovich):
         """Remove the consumed phi stage's disk file, if any: it must not
         outlive the pass (it is 1/narray of the main stage)."""
         if phi_stage is not None and self.backing == "disk":
-            (self.param.output_path / "zeldovich.phi.mm").unlink(missing_ok=True)
+            self._stage_file("zeldovich.phi").unlink(missing_ok=True)
 
     # -- main passes ----------------------------------------------------
     def stage_pass1(self, stage=None):
@@ -238,22 +250,35 @@ class OutOfCoreZeldovich(Zeldovich):
         self._drop_phi_stage(phi_stage)
         return stage
 
+    def pass2(self, stage):
+        """(z0, x-space z-slab on the device) for each z-slab of the stage:
+        the y DFT(+1) in place, the slab after next already on its way."""
+        keys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
+        return ((sel[3].start, dft_y(z, +1, out=z)) for sel, z in slabs_to_device(
+            keys, stage.__getitem__, self.device))
+
+    def _setup_dir(self):
+        setup_output_dir(self.param)
+
+    def _writer(self) -> OutputWriter:
+        return OutputWriter(self.param)
+
+    def _finish(self, writer):
+        writer.report(self.Pk)
+
     def run(self, setup_dir: bool = True, stage=None) -> OutputWriter:
         """Pass 2 over a stage (pass 1 first when none is given): the y
         inverse DFT of every z-slab, streamed through the writer."""
-        p = self.param
         if setup_dir:
-            setup_output_dir(p)
+            self._setup_dir()
         own_stage = stage is None
         if own_stage:
             stage = self.stage_pass1()
-        writer = OutputWriter(p)
+        writer = self._writer()
         aw = AsyncSlabWriter(writer)
-        keys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
-        items = ((sel[3].start, dft_y(z, +1, out=z)) for sel, z in slabs_to_device(
-            keys, stage.__getitem__, self.device))
         try:
-            stream_to_host(items, lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
+            stream_to_host(self.pass2(stage),
+                           lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
         finally:
             aw.close()
         if own_stage and self.backing == "disk":
@@ -261,6 +286,192 @@ class OutOfCoreZeldovich(Zeldovich):
             # quickdelete of consumed block files); a crash leaves it on
             # disk as the resume point
             del stage
-            (p.output_path / "zeldovich.stage.mm").unlink(missing_ok=True)
-        writer.report(self.Pk)
+            self._stage_file("zeldovich.stage").unlink(missing_ok=True)
+        self._finish(writer)
         return writer
+
+
+class DistributedOutOfCore(OutOfCoreZeldovich):
+    """Out of core over a mesh of ranks, each staging 1/W of the grid.
+
+    Counterpart of ``zeldovich_tpu/models/outofcore.py::DistributedOutOfCore``
+    (:255), with the stage split along y instead of x
+    (``parallel/outofcore.py``): rank r stages rows [r Yl, (r+1) Yl),
+    Yl = ppd / W, in host RAM or (``backing="disk"``) in
+    ``zeldovich.stage.p{r}.mm``.
+
+      pass 1 (the rank's y-slabs): the one-device pass 1, synthesis (B5)
+                                   and the z/x DFT(+1), no collective;
+      pass 2 (z-blocks, lockstep): the rank's rows of every rank's block to
+                                   the card, one exchange to its z-slab,
+                                   the y DFT(+1), its own planes pwritten
+                                   by its own writer.
+
+    f_NL runs the phi round trip through a per-rank phi stage the same way
+    (the z-block pass exchanges there and back), and pass 1 takes the
+    reflected rows (n - y) mod n of each slab from the ranks that hold
+    them with one uneven all-to-all (``parallel/synthesis.py``).  Every
+    slab's arithmetic is the one-device out-of-core run's, so the ic_*
+    bytes are that run's.  The slab thickness is a divisor of Yl, so every
+    rank takes the same number of steps.  The ``--part 1`` stage is
+    ``zeldovich.kspace.mm.p{r}`` with a meta file (shape, dtype, world, y
+    range); a restart with another world size is refused.
+    """
+
+    def __init__(self, param, mesh, dtype=torch.float64, slab_bytes=2 << 30,
+                 backing: str = "ram"):
+        super().__init__(param, dtype=dtype, slab_bytes=slab_bytes, backing=backing,
+                         device=mesh.device)
+        from ..parallel.pencil_mmfft import slab
+
+        self.check_sharded(mesh)  # ZD_Version=1, ranks that do not divide ppd
+        self.mesh = mesh
+        self._row0, self._row1 = slab(param.ppd, mesh)
+        yl = self._row1 - self._row0
+        self.slab = min(self.slab, yl)
+        while yl % self.slab:
+            self.slab -= 1
+
+    def stage_layout(self, narray=None):
+        p = self.param
+        narray = p.narray if narray is None else narray
+        return (narray, 2, self._row1 - self._row0, p.ppd, p.ppd), self._fnp
+
+    def _stage_meta(self) -> dict:
+        return {**super()._stage_meta(), "layout": "pair y-slab",
+                "world": self.mesh.world, "y_range": [self._row0, self._row1]}
+
+    def _rank_path(self, path) -> Path:
+        path = Path(path)
+        return path.with_name(f"{path.name}.p{self.mesh.rank}")
+
+    def check_stage(self, path):
+        """Raise StageMismatch unless this rank's ``path``.p{rank} and its
+        meta file are a stage checkpoint of this run: its world size, y
+        range, shape and dtype."""
+        mm = self._rank_path(path)
+        want = self._stage_meta()
+        try:
+            got = json.loads(_meta_path(mm).read_text())
+        except (OSError, ValueError) as e:
+            raise StageMismatch(f"no stage checkpoint for rank {self.mesh.rank} "
+                                f"at {mm}: {e}") from None
+        if got != want:
+            raise StageMismatch(
+                f"stage checkpoint {mm} was cut for world {got.get('world')}, y range "
+                f"{got.get('y_range')}, {got.get('dtype')} {got.get('shape')}, but "
+                f"this run is world {want['world']}, y range {want['y_range']}, "
+                f"{want['dtype']} {want['shape']}")
+        shape, dtype = self.stage_layout()
+        if mm.stat().st_size != int(np.prod(shape)) * np.dtype(dtype).itemsize:
+            raise StageMismatch(f"stage checkpoint {mm} is {mm.stat().st_size} bytes, "
+                                f"want {want}")
+
+    def stage_memmap(self, path, mode="w+"):
+        """This rank's disk stage ``path``.p{rank}; "r" checks it on every
+        rank, and every rank raises if any rank's does not match."""
+        mm = self._rank_path(path)
+        err = None
+        if mode != "w+":
+            try:
+                self.check_stage(path)
+            except StageMismatch as e:
+                err = e
+            if not self.mesh.agree(err is None):
+                raise err or StageMismatch(
+                    f"stage checkpoint {path}: another rank's does not match this run")
+            shape, dtype = self.stage_layout()
+            return np.memmap(mm, dtype=dtype, mode=mode, shape=shape)
+        return super().stage_memmap(mm, mode)
+
+    def cleanup_stage_memmap(self, path):
+        super().cleanup_stage_memmap(self._rank_path(path))
+
+    def _stage_file(self, name) -> Path:
+        return self.param.output_path / f"{name}.p{self.mesh.rank}.mm"
+
+    def _slab_starts(self):
+        """The rank's y-slabs (pass 1) by their first grid row."""
+        return range(self._row0, self._row1, self.slab)
+
+    def _zsteps(self):
+        return range((self._row1 - self._row0) // self.slab)
+
+    def _zslabs(self, stage, fn):
+        """(z0, fn(this rank's z-slab)) for each lockstep z-block: its rows
+        of every rank's block to the device, one exchange."""
+        from ..parallel.outofcore import zblocks, zslab_from_rows
+
+        w = self.mesh.world
+        for j, rows in slabs_to_device(
+                self._zsteps(), lambda j: zblocks(stage, j, self.slab, w), self.device):
+            yield self._row0 + j * self.slab, fn(zslab_from_rows(rows, self.mesh))
+
+    def pass2(self, stage):
+        return self._zslabs(stage, lambda z: dft_y(z, +1, out=z))
+
+    # -- phi round trip -------------------------------------------------
+    def _phi_stage(self):
+        """This rank's rows of phi(k), (1, 2, Yl, Z, X), in a host stage."""
+        from ..parallel.outofcore import rows_from_zslab, zblocks
+
+        p = self.param
+        stage = self._alloc_stage(1, "zeldovich.phi")
+        stream_to_host(((y0, self._pass1_slab(y0, gen_phi=True))
+                        for y0 in self._slab_starts()), self._y_sink(stage))
+        inv_n3 = 1.0 / p.ppd**3
+
+        def fwd_y_phi_nl(z):
+            dft_y(z, +1, out=z)
+            return rows_from_zslab(dft_y(phi_nl(z, p.f_NL, inv_n3), -1, out=z),
+                                   self.mesh)
+
+        w = self.mesh.world
+
+        def sink(z0, h):
+            zblocks(stage, (z0 - self._row0) // self.slab, self.slab, w)[...] = h
+
+        stream_to_host(self._zslabs(stage, fwd_y_phi_nl), sink)
+        ykeys = [_ysel(y0 - self._row0, self.slab) for y0 in self._slab_starts()]
+        stream_to_host(((sel, dft_zx(y, -1, out=y)) for sel, y in slabs_to_device(
+            ykeys, stage.__getitem__, self.device)), stage.__setitem__)
+        return stage
+
+    def _phi_pairs(self, phi_stage):
+        """(y0, ((same_re, same_im), (refl_re, refl_im))) for each of the
+        rank's y-slabs: phi(k) at (y, z, x) from its own stage, and at
+        ((-y, -z, -x) mod ppd) from the ranks that hold the rows (n - y)
+        mod n, by one uneven all-to-all a slab."""
+        from ..parallel.synthesis import reflected_exchange
+
+        p, ny = self.param, self.slab
+        yl = self._row1 - self._row0
+
+        def take(rows):
+            h = np.ascontiguousarray(phi_stage[0][:, rows].swapaxes(0, 1))
+            return torch.from_numpy(h).to(self.device)
+
+        for i, y0 in enumerate(self._slab_starts()):
+            y0l = y0 - self._row0
+            same = torch.from_numpy(np.array(phi_stage[0, :, y0l:y0l + ny])).to(self.device)
+            refl = _reflect_zx(reflected_exchange(
+                take, lambda r: range(r * yl + i * ny, r * yl + (i + 1) * ny), yl,
+                (p.ppd, p.ppd), self.mesh, self.dtype, self.device))
+            yield y0, ((same[0], same[1]), (refl[0], refl[1]))
+
+    # -- the run ---------------------------------------------------------
+    def _setup_dir(self):
+        if self.mesh.rank == 0:
+            setup_output_dir(self.param)
+        self.mesh.barrier()
+
+    def _writer(self) -> OutputWriter:
+        return OutputWriter(self.param, parallel=self.mesh.world > 1)
+
+    def _finish(self, writer):
+        from ..parallel.multihost import reduce_stats
+
+        self.mesh.barrier()
+        reduce_stats(writer, self.mesh)
+        if self.mesh.rank == 0:
+            writer.report(self.Pk)

@@ -342,6 +342,26 @@ class OutputWriter:
                 file=sys.stderr,
             )
 
+    # -- cross-process stats contract -----------------------------------
+    def stats_vector(self) -> np.ndarray:
+        """This process's mergeable stats: [sum dens^2, signed max_disp
+        x/y/z, bytes_written] -- the reduction payload for multi-host runs
+        (parallel/multihost.reduce_stats)."""
+        return np.concatenate([self._stats, [float(self.bytes_written)]])
+
+    def merge_stats(self, allstats: np.ndarray):
+        """Replace local stats with the global combination.
+
+        allstats: (nproc, 5) stack of every process's stats_vector().
+        Density variance and byte counts sum; max displacement keeps the
+        largest-magnitude signed value per component.
+        """
+        self._stats[0] = allstats[:, 0].sum()
+        for j in range(1, 4):
+            col = allstats[:, j]
+            self._stats[j] = col[np.argmax(np.abs(col))]
+        self.bytes_written = int(allstats[:, 4].sum())
+
     # ------------------------------------------------------------------
     def report(self, Pk) -> dict:
         """Final statistics, printed like the reference (zeldovich.cpp:987-1011)."""

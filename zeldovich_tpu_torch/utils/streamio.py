@@ -19,7 +19,10 @@ layout (narray, 2, Y, Z, X), and of the out-of-core streaming loops
   bytes are produced by the same code from the same values.
 
 * ``stream_xspace_sharded(x, writer, mesh)``: the z-slabs of a sharded
-  step, every rank's through rank 0's writer in z order (rank order).
+  step, every rank's through rank 0's writer in z order (rank order); with
+  ``--distributed`` each rank streams its own z-slab through its own
+  writer instead (``stream_xspace(x, writer, z0)``,
+  ``parallel/multihost.py::write_local_slabs``).
 
 On the CPU both directions are plain host copies.
 """
@@ -182,19 +185,58 @@ def slabs_to_device(keys, view, device):
             ev.synchronize()
 
 
-def stream_xspace(x, writer):
-    """Stream an x-space pair grid (narray, 2, Y, Z, X) through the writer
-    in z-chunks of ~256 MB; closes the writer."""
-    ppd = x.shape[-2]
-    chunk = _chunk_planes(x.shape, x.element_size(), ppd, True, 256 << 20)
+def _zslab_chunk(x) -> int:
+    """z planes a chunk of the z-slab x (narray, 2, Y, Zl, X): the largest
+    divisor of Zl within ~256 MB."""
+    zl = x.shape[3]
+    chunk = _chunk_planes(x.shape, x.element_size(), x.shape[2], True, 256 << 20)
+    while zl % chunk:
+        chunk -= 1
+    return chunk
+
+
+def stream_xspace(x, writer, z0: int = 0):
+    """Stream an x-space pair grid (narray, 2, Y, Z, X), or the z-slab of
+    planes [z0, z0 + Zl) (narray, 2, Y, Zl, X), through the writer in
+    z-chunks of ~256 MB, one ahead; closes the writer."""
+    chunk = _zslab_chunk(x)
     aw = AsyncSlabWriter(writer)
     try:
-        items = ((z0, x[:, :, :, z0:z0 + chunk, :].contiguous())
-                 for z0 in range(0, ppd, chunk))
-        stream_to_host(items, lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
+        items = ((z0 + dz, x[:, :, :, dz:dz + chunk, :].contiguous())
+                 for dz in range(0, x.shape[3], chunk))
+        stream_to_host(items, lambda z, h: _flush_chunk(aw, z, h, pair=True))
     finally:
         aw.close()
     return writer
+
+
+def send_to_rank0(x, axis: int, chunk: int, mesh):
+    """Send this rank's slab x to rank 0 in chunks of ``chunk`` entries
+    along ``axis`` (``gathered_chunks`` receives them)."""
+    import torch.distributed as dist
+
+    for o in range(0, x.shape[axis], chunk):
+        dist.send(x.narrow(axis, o, chunk).contiguous(), 0, group=mesh.group)
+
+
+def gathered_chunks(x, axis: int, chunk: int, mesh):
+    """On rank 0: (offset along ``axis`` of the whole grid, chunk) for every
+    rank's slab in rank order, its own x first, then each other rank's as
+    ``send_to_rank0`` sends it, received into one buffer (chunk divides
+    x.shape[axis], the same on every rank)."""
+    import torch.distributed as dist
+
+    n = x.shape[axis]
+    for o in range(0, n, chunk):
+        yield o, x.narrow(axis, o, chunk).contiguous()
+    shape = list(x.shape)
+    shape[axis] = chunk
+    buf = torch.empty(shape, dtype=x.dtype, device=x.device)
+    for r in range(1, mesh.world):
+        for o in range(0, n, chunk):
+            dist.recv(buf, r, group=mesh.group)
+            # a copy the stream may keep while buf takes the next chunk
+            yield r * n + o, buf.clone()
 
 
 def stream_xspace_sharded(x, writer, mesh):
@@ -202,35 +244,18 @@ def stream_xspace_sharded(x, writer, mesh):
 
     x is this rank's z-slab (narray, 2, Y, Zl, X).  Rank 0 streams its own
     slab as ``stream_xspace`` does, then each other rank's in rank order (=
-    z order): chunks of z planes received with ``dist.recv`` into one
-    device buffer and streamed through the same ``AsyncSlabWriter``; the
-    other ranks send theirs in the same chunks.  ``writer`` is rank 0's
-    (None on the others); closes it.
+    z order) through the same ``AsyncSlabWriter``; the other ranks send
+    theirs in the same chunks.  ``writer`` is rank 0's (None on the
+    others); closes it.
     """
-    import torch.distributed as dist
-
-    narray, _, ppd, zl, _ = x.shape
-    chunk = _chunk_planes(x.shape, x.element_size(), ppd, True, 256 << 20)
-    while zl % chunk:
-        chunk -= 1
+    chunk = _zslab_chunk(x)
     if mesh.rank != 0:
-        for z0 in range(0, zl, chunk):
-            dist.send(x[:, :, :, z0:z0 + chunk].contiguous(), 0, group=mesh.group)
+        send_to_rank0(x, 3, chunk, mesh)
         return None
-
-    def items():
-        for z0 in range(0, zl, chunk):
-            yield z0, x[:, :, :, z0:z0 + chunk].contiguous()
-        buf = torch.empty((narray, 2, ppd, chunk, ppd), dtype=x.dtype, device=x.device)
-        for r in range(1, mesh.world):
-            for z0 in range(0, zl, chunk):
-                dist.recv(buf, r, group=mesh.group)
-                # a copy the stream may keep while buf takes the next chunk
-                yield r * zl + z0, buf.clone()
-
     aw = AsyncSlabWriter(writer)
     try:
-        stream_to_host(items(), lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
+        stream_to_host(gathered_chunks(x, 3, chunk, mesh),
+                       lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
     finally:
         aw.close()
     return writer
