@@ -103,8 +103,9 @@ script exits non-zero without printing a result:
    float64 full step against the plain route; the 1152^3 float32 half step
    in core (launches, finite, time, peak); at 1728^3 and 4096^3 one
    out-of-core slab of each pass against the plain route; the CLI at 576^3
-   in float64 with no --dtype, plain and PLT against the plain route
-   particle by particle, then --out-of-core against the in-core run.  At
+   in float64 with no --dtype, plain and PLT on the card's 576 table (PLT
+   held particle by particle against the plain route's output the float64
+   half step kept), then --out-of-core against the in-core run.  At
    ppd 2, 8 and 12 (SIZES_SMALL) in both types: B3, B4 and B5 against
    their plain versions and the separate half step, plain and PLT, against
    the plain route with its launches.
@@ -129,7 +130,8 @@ script exits non-zero without printing a result:
    one-device step, their peak memory.  With more than one card (a) and
    (c) start a process a card (the spawn method, the environment torchrun
    gives its ranks) and every rank's launch counters are read and checked.
-   ``python3 chip_smoke.py --only sharded`` runs phases 1, 12 and 13 alone.
+   ``python3 chip_smoke.py --only sharded`` runs phases 1, 12, 13 and 14
+   alone.
 13. several processes and sharded out of core (``--distributed``,
    zeldovich_tpu_torch/parallel/multihost.py and outofcore.py,
    ``DistributedOutOfCore``), in float64: (a) the CLI with --distributed
@@ -154,6 +156,27 @@ script exits non-zero without printing a result:
    512^3 (RVZel) and 1024^3 (ZelSimple), in core; (d) on one card, two
    --distributed processes joined over the triple share card 0: NCCL must
    refuse them (both exit non-zero naming the duplicate GPU), no gloo.
+14. --profile DIR (torch.profiler, one trace a rank and run), float64, the
+   launch counters reset just before each CLI run and read just after:
+   (a) after one empty trace (the profiler's first start in a process,
+   which scripts/torch_profile_start.py times in a fresh process), the
+   512^3 plain CLI without and with --profile: the same launches and every
+   output byte the same; the wall, the "Inverse FFT" and "Output" phases
+   of both, the trace's MB and event count, and inside its "Output" range
+   the card's busy share, its longest idle gap, the copies and the main
+   thread's time in torch ops; (b) the 256^3 f_NL --out-of-core run (64 MB
+   slabs) with --profile; (c) at 128^3 f_NL in core (the full grid), --part 1 then
+   --part 2 into one DIR (two traces) and --sharded (one rank); (d)
+   --distributed --profile at 256^3 plain over every card (one card: one
+   process joined over the loopback triple; more: a process a card), a
+   trace a rank, each with NCCL kernel events on more than one card.  In
+   every trace each port kernel (TRACE_KERNELS: pack_rows_kernel,
+   axis_cols_kernel, axis_rows_kernel, boxmuller_kernel,
+   boxmuller_at_kernel, pack_kernel) has as many events as its wrappers'
+   launch counters give, and every one of their launches (the CUDA runtime
+   call the trace correlates with the kernel) lies inside the run's
+   "Inverse FFT" range (in core; --part 1: "Mode synthesis") or
+   "Out-of-core streamed run" range.  Prints a {"profile": ...} JSON line.
 
 Phases 2 to 8 run twice, in float32 and in float64 (the double instances
 of every kernel: against the plain versions to 1e-12 of the largest value
@@ -1864,8 +1887,9 @@ def _sizes_half_step(dt, table: Path):
     the separate half step (B3, the ky=0 fixup, the matrix products) plain
     and PLT against the plain route with its launches, the products against
     complex128 torch.fft, times and the peak; returns (kernel readings,
-    step readings, the plain step's output on the host).  The plain route
-    runs first and alone: at 576^3 PLT float64 it peaks near 50 GB."""
+    step readings, the plain step's output on the host, in float64 the PLT
+    plain route's output on the host, else None).  The plain route runs
+    first and alone: at 576^3 PLT float64 it peaks near 50 GB."""
     import statistics
 
     import torch
@@ -1880,7 +1904,7 @@ def _sizes_half_step(dt, table: Path):
     mp = model_for(n, True, dt=dt, ZD_PLT_filename=f'"{table}"')
     check(mp.tables.eig.shape[0] == n, f"the model did not load the {n} table")
     kern = _sizes_kernels(m, mp, dt)
-    step = {}
+    step, keep_plt = {}, None
     for mm, what in ((m, "plain"), (mp, "PLT")):
         def plain(mm=mm):
             return c2r_y_plain(halfspace_pack_zx_plain(mm.cfg, mm.tables, mm.pk_eff,
@@ -1894,6 +1918,8 @@ def _sizes_half_step(dt, table: Path):
         _check_launches(f"{n}^3 {what} {f} half step", dict(kernels.launches), MM)
         step[f"{what}_err"] = compare(x, xp, tol_for(dt, ROUTE_TOL),
                                       f"{n}^3 {what} {f} separate step vs plain route")
+        if mm is mp and dt == F64:
+            keep_plt = xp.cpu()  # the CLI's PLT run is held against it
         del xp
         if mm is m:
             keep = x.cpu()
@@ -1911,7 +1937,7 @@ def _sizes_half_step(dt, table: Path):
     step.update(_sizes_products(m, dt, spm64))
     del spm64, m
     torch.cuda.empty_cache()
-    return kern, step, keep
+    return kern, step, keep, keep_plt
 
 
 def _sizes_fnl():
@@ -2013,17 +2039,15 @@ def _sizes_ooc(ppd: int):
     return {"rows": rows, "pass1_ms": t1, "pass2_ms": t2, "errs": (e1, e2)}
 
 
-def _sizes_cli(tmp: Path, table: Path):
+def _sizes_cli(tmp: Path, table: Path, x_plt):
     """The CLI at 576^3 in float64 (no --dtype): plain, PLT on the card's
-    576 table (held against the plain route particle by particle), then
-    --out-of-core (held against the in-core plain run); each launches B3
-    (out of core B5) and no other kernel.  Returns the launches over the
-    three runs."""
+    576 table (held particle by particle against x_plt, the plain route's
+    output on the host), then --out-of-core (held against the in-core
+    plain run); each launches B3 (out of core B5) and no other kernel.
+    Returns the launches over the three runs."""
     import torch
 
     from zeldovich_tpu_torch import kernels
-    from zeldovich_tpu_torch.ops.c2r import c2r_y_plain
-    from zeldovich_tpu_torch.ops.synth import halfspace_pack_zx_plain
 
     n, total = SIZES_N, {k: 0 for k in kernels.launches}
     runs = (("sizes_plain", False, {}, [], MM),
@@ -2041,12 +2065,7 @@ def _sizes_cli(tmp: Path, table: Path):
         if name == "sizes_ooc":
             _same_particles(tmp / name, tmp / "sizes_plain", n, "the in-core run")
         elif plt:
-            m = model_for(n, True, dt=F64, **extra)
-            x = c2r_y_plain(halfspace_pack_zx_plain(m.cfg, m.tables, m.pk_eff,
-                                                    m.plt_coefs), n)
-            del m
-            _against_plain(tmp, name, par, x, ppd=n)
-            del x
+            _against_plain(tmp, name, par, x_plt, ppd=n)
             for d in (name, f"{name}_plain"):
                 shutil.rmtree(tmp / d)
         torch.cuda.empty_cache()
@@ -2070,12 +2089,12 @@ def phase_sizes():
         t = time.perf_counter()
         save_eigmodes(table, lattice.generate_eigmodes_table(SIZES_N))
         say(f"  the {SIZES_N} PLT table on the card: {time.perf_counter() - t:.3f} s")
-        x64 = None
+        x64 = x_plt = None
         for dt in (F64, F32):
-            kern, step, x = _sizes_half_step(dt, table)
+            kern, step, x, plt = _sizes_half_step(dt, table)
             res["kernels"][dt], res["steps"][dt] = kern, step
             if dt == F64:
-                x64 = x
+                x64, x_plt = x, plt
             else:
                 # float32 draws are not float64's (their uniforms carry 32
                 # bits), so values alone: no zero pattern is shared
@@ -2089,13 +2108,14 @@ def phase_sizes():
             del x
         del x64
         torch.cuda.empty_cache()
+        # the CLI now, while the host holds the PLT plain route's output
+        res["launches"] = _sizes_cli(tmp, table, x_plt)
+        del x_plt
         say(f"  phase 11 at {time.perf_counter() - t0:.1f} s")
         res["fnl_ms"] = _sizes_fnl()
         res["ms_1152"], res["peak_1152"], res["products_1152"] = _sizes_1152()
         res["ooc"] = {ppd: _sizes_ooc(ppd) for ppd in SIZES_OOC}
         _sizes_small()
-        say(f"  phase 11 at {time.perf_counter() - t0:.1f} s")
-        res["launches"] = _sizes_cli(tmp, table)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     say(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
@@ -2782,12 +2802,250 @@ def phase_multihost():
     return total
 
 
+#: phase 14: a kernel's name in a trace (its template, demangled by CUPTI)
+#: -> the launch counters of the wrappers that launch it once a call
+TRACE_KERNELS = {
+    "pack_rows_kernel": ("halfspace_pack_zx",),
+    "axis_cols_kernel": ("halfspace_pack_zx", "c2r_y", "zx_dft", "y_dft"),
+    "axis_rows_kernel": ("zx_dft",),
+    "boxmuller_kernel": ("halfspace_boxmuller",),
+    "boxmuller_at_kernel": ("boxmuller",),
+    "pack_kernel": ("halfspace_pack",),
+}
+
+
+def _trace(d: Path, rank: int = 0, runs: int = 1) -> tuple[Path, list]:
+    """The newest trace rank `rank` wrote into d after `runs` runs (one
+    file a run), and its events."""
+    files = sorted(d.glob(f"rank{rank}.*.pt.trace.json"),
+                   key=lambda f: int(f.name.split(".")[1]))
+    check(len(files) == runs, f"{d}: rank {rank} wrote {len(files)} traces in {runs} runs")
+    return files[-1], json.loads(files[-1].read_text())["traceEvents"]
+
+
+def _trace_summary(path: Path, events: list, launches: dict, what: str,
+                   phases: tuple) -> dict:
+    """Checks that the trace's kernel events are the launch counters' (each
+    kernel of TRACE_KERNELS as often as its wrappers launched it) and that
+    every launch of the port's kernels, the CUDA runtime call the trace
+    correlates with the kernel, lies inside a range of one of
+    `phases`; returns the trace's size, event count and kernel events by
+    name (NCCL's too)."""
+    kernels = {k: 0 for k in TRACE_KERNELS}
+    kernels["nccl"] = 0
+    ours = set()  # correlation ids of the port's kernels
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k in TRACE_KERNELS:
+            if re.search(rf"\b{k}<", e["name"]):
+                kernels[k] += 1
+                ours.add(e["args"]["correlation"])
+        kernels["nccl"] += "nccl" in e["name"].lower()
+    want = {k: sum(launches[c] for c in cs) for k, cs in TRACE_KERNELS.items()}
+    check(all(kernels[k] == n for k, n in want.items()),
+          f"{what}: the trace's kernel events {kernels}, the launch counters' {want}")
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] in phases]
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e.get("args", {}).get("correlation") in ours]
+    check({e["args"]["correlation"] for e in calls} == ours,
+          f"{what}: {len(ours)} kernels, launches found for "
+          f"{len({e['args']['correlation'] for e in calls})}")
+    outside = [e["name"] for e in calls
+               if not any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in spans)]
+    check(spans and not outside, f"{what}: {len(outside)} launches outside {phases} "
+          f"({len(spans)} such ranges)")
+    res = {"trace_mb": path.stat().st_size / 1e6, "events": len(events),
+           "kernel_events": {k: n for k, n in kernels.items() if n},
+           "launch_calls_inside": len(calls)}
+    say(f"  {what}: {path.name}, {res['trace_mb']:.2f} MB, {len(events)} events; "
+        f"kernel events {res['kernel_events']}, {len(calls)} launch calls inside "
+        f"{' or '.join(phases)}")
+    return res
+
+
+def _union(spans) -> tuple[float, float]:
+    """The time (us) the spans (start, end) cover together, and the
+    longest time between them."""
+    covered, gap, end = 0.0, 0.0, None
+    for a, b in sorted(spans):
+        if end is not None and a > end:
+            gap = max(gap, a - end)
+        if end is None or a > end:
+            covered += b - a
+            end = b
+        elif b > end:
+            covered += b - end
+            end = b
+    return covered, gap
+
+
+def _phase_gaps(events: list, phase: str) -> dict:
+    """Inside the (first) range `phase` of a trace: its length, the card's
+    busy time (kernels, copies and sets together) and its longest idle
+    gap, the copies' count and bytes, and the main thread's time inside
+    torch ops (the rest of it is Python and numpy, or waiting)."""
+    span = next(e for e in events if e.get("cat") == "user_annotation" and e["name"] == phase)
+    a, b = span["ts"], span["ts"] + span["dur"]
+    inside = [e for e in events if "dur" in e and a <= e["ts"] < b]
+    dev = [(e["ts"], min(e["ts"] + e["dur"], b)) for e in inside
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, gap = _union([(a, a), *dev, (b, b)])  # the range's ends bound the gaps
+    host, _ = _union((e["ts"], min(e["ts"] + e["dur"], b)) for e in inside
+                     if e.get("cat") == "cpu_op" and e["tid"] == span["tid"])
+    copies = [e for e in inside if e.get("cat") == "gpu_memcpy"]
+    res = {"phase_s": span["dur"] / 1e6, "device_busy_s": busy / 1e6,
+           "device_busy_share": busy / span["dur"], "longest_device_gap_s": gap / 1e6,
+           "copies": len(copies),
+           "copy_gb": sum(e["args"].get("bytes", 0) for e in copies) / 1e9,
+           "host_ops_s": host / 1e6, "host_ops_share": host / span["dur"]}
+    say(f"  inside {phase!r} ({res['phase_s']:.3f} s): the card busy {res['device_busy_s']:.3f} s "
+        f"({100 * res['device_busy_share']:.1f}%), longest idle gap "
+        f"{res['longest_device_gap_s']:.3f} s, {len(copies)} copies of "
+        f"{res['copy_gb']:.2f} GB; the main thread in torch ops {res['host_ops_s']:.3f} s "
+        f"({100 * res['host_ops_share']:.1f}%)")
+    return res
+
+
+def _profile_run(argv: list) -> dict:
+    """cli.main(argv) with the launch counters reset just before it and
+    read just after, its wall and phases (s)."""
+    t0 = time.perf_counter()
+    res = _cli_job(argv)
+    res["wall_s"] = time.perf_counter() - t0
+    check(res["rc"] == 0, f"{' '.join(argv[1:])}: exited {res['rc']}")
+    return res
+
+
+#: the phases a kernel of the path launches in: in core, a --part 1 run,
+#: out of core
+IFFT, SYNTH = ("Inverse FFT",), ("Mode synthesis (+ f_NL phi pass)",)
+OOC_RUN = ("Out-of-core streamed run",)
+
+
+def _profile_512(tmp: Path) -> dict:
+    """(a) the 512^3 plain CLI without and with --profile in this process,
+    after one empty trace: the profiler's first start in a process (torch
+    imports torch._inductor then; ~7 s on the card's machine, timed in a
+    fresh process by scripts/torch_profile_start.py) is paid before the
+    pair, here or by an earlier phase."""
+    from torch.profiler import profile
+
+    t0 = time.perf_counter()
+    with profile():
+        pass
+    warm = time.perf_counter() - t0
+    say(f"  an empty trace first: {warm:.3f} s")
+    keep = ("Inverse FFT", "Output")
+    runs = {}
+    for name, flags in (("plain512", []), ("plain512_traced", ["--profile", str(tmp / "t512")])):
+        par = _write_par(tmp, name, 512, False, {})
+        runs[name] = r = _profile_run([str(par), *flags])
+        r["outside_output_s"] = r["wall_s"] - r["phases"]["Output"]
+        say(f"  512^3 plain f64 {' '.join(flags) or 'without --profile'}: wall "
+            f"{r['wall_s']:.3f} s, " + ", ".join(f"{k} {r['phases'][k]:.3f} s" for k in keep)
+            + f", outside Output {r['outside_output_s']:.3f} s; launches {r['launches']}")
+    check(runs["plain512"]["launches"] == runs["plain512_traced"]["launches"],
+          "--profile changed the launch counts")
+    _same_outputs(tmp / "plain512_traced", tmp / "plain512", "512^3 --profile")
+    for name in runs:
+        shutil.rmtree(tmp / name)
+    path, events = _trace(tmp / "t512")
+    res = _trace_summary(path, events, runs["plain512_traced"]["launches"],
+                         "512^3 plain trace", IFFT)
+    res["output_gaps"] = _phase_gaps(events, "Output")
+    res["empty_trace_first_s"] = warm
+    res.update({k: {"wall_s": r["wall_s"], "outside_output_s": r["outside_output_s"],
+                    **{p: r["phases"][p] for p in keep}}
+                for k, r in (("without", runs["plain512"]), ("with", runs["plain512_traced"]))})
+    return res
+
+
+def _profile_paths(tmp: Path) -> dict:
+    """(b) the 256^3 f_NL --out-of-core run (64 MB slabs), (c) at 128^3
+    f_NL in core (the full grid), --part 1 then --part 2 into one DIR and
+    --sharded (one rank), each with --profile, in this process."""
+    res = {}
+    par = _write_par(tmp, "ooc_fnl256", 256, False, FNL)
+    r = _profile_run([str(par), *SLABS64, "--profile", str(tmp / "tooc")])
+    _check_launches("256^3 f_NL --out-of-core --profile", r["launches"], OOC)
+    res["ooc_fnl256"] = _trace_summary(*_trace(tmp / "tooc"), r["launches"],
+                                       "256^3 f_NL out-of-core trace", OOC_RUN)
+    res["ooc_fnl256"]["wall_s"] = r["wall_s"]
+    shutil.rmtree(tmp / "ooc_fnl256")
+    for name, extra, flag_sets, phases in (
+            ("fnl128", FNL, [[]], [IFFT]), ("part128", {}, PART, [SYNTH, IFFT]),
+            ("sharded128", {}, [["--sharded"]], [IFFT])):
+        par = _write_par(tmp, name, 128, False, extra)
+        for i, (flags, ph) in enumerate(zip(flag_sets, phases)):
+            r = _profile_run([str(par), *flags, "--profile", str(tmp / f"t{name}")])
+            res[f"{name}.{i + 1}"] = _trace_summary(
+                *_trace(tmp / f"t{name}", runs=i + 1), r["launches"],
+                f"128^3 {name} {' '.join(flags)} trace", ph)
+        shutil.rmtree(tmp / name)
+    return res
+
+
+def _profile_distributed(tmp: Path) -> list:
+    """(d) --distributed --profile at 256^3 plain in core over every card
+    (one card: one process over the loopback triple; more: a process a
+    card): a trace a rank, each with its rank's kernel events and, on more
+    than one card, NCCL's."""
+    import socket
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    par = _write_par(tmp, "dist256", 256, False, {})
+    argv = [str(par), "--distributed", "--profile", str(tmp / "tdist")]
+    if cards == 1:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        ranks = [_profile_run(argv + _triple(port, 1, 0))]
+    else:
+        ranks = _card_ranks(cards, "dcli", argv, tmp, 600)
+        check(all(x["rc"] == 0 for x in ranks), f"--distributed --profile: {ranks}")
+    wrote = sorted(f.name for f in (tmp / "tdist").iterdir())
+    check(len(wrote) == cards, f"--distributed --profile over {cards} card(s) wrote {wrote}")
+    res = []
+    for rank, rk in enumerate(ranks):
+        _check_launches(f"--distributed --profile rank {rank}", rk["launches"], HALF)
+        t = _trace_summary(*_trace(tmp / "tdist", rank), rk["launches"],
+                           f"256^3 --distributed rank {rank} of {cards} trace", IFFT)
+        check(cards == 1 or t["kernel_events"].get("nccl", 0) > 0,
+              f"rank {rank}'s trace holds no NCCL kernel")
+        res.append(t)
+    shutil.rmtree(tmp / "dist256")
+    return res
+
+
+def phase_profile(parts=("512", "paths", "distributed")):
+    """Phase 14: --profile (torch.profiler, a trace a rank and run) on the
+    port's paths, float64; `parts` of it alone where asked."""
+    import torch
+
+    say(f"== phase 14: --profile, on {smi()}, {torch.cuda.device_count()} card(s)")
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="zt_profile_"))
+    run = {"512": _profile_512, "paths": _profile_paths,
+           "distributed": _profile_distributed}
+    try:
+        res = {part: run[part](tmp) for part in parts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    say(f"  phase 14 took {res['seconds']:.1f} s")
+    say(json.dumps({"profile": {"card": smi(), **res}}))
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on the GPU.")
     ap.add_argument("--only", choices=["sharded"],
-                    help="phases 1, 12 and 13 alone (no kernel summary)")
+                    help="phases 1, 12, 13 and 14 alone (no kernel summary)")
     args = ap.parse_args(argv)
     if not (ROOT / "zeldovich_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2808,7 +3066,8 @@ def main(argv=None) -> int:
     if args.only == "sharded":
         phase_sharded()
         phase_multihost()
-        say(f"phases 1, 12 and 13 passed in {time.perf_counter() - t0:.1f} s")
+        phase_profile()
+        say(f"phases 1, 12, 13 and 14 passed in {time.perf_counter() - t0:.1f} s")
         say(smi())
         return 0
     phase_eigmodes()
@@ -2833,6 +3092,8 @@ def main(argv=None) -> int:
     stamp("phase 12")
     multihost = phase_multihost()
     stamp("phase 13")
+    phase_profile()
+    stamp("phase 14")
     card = smi()
 
     def entry(dt, name, source, replaces, err, ms, **more):

@@ -136,15 +136,13 @@ def test_memory_plan_counts_the_phi_grid(tmp_path, capsys, over, narrays):
     "flags,says",
     [(["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "2"],
       "--process-id 2 is not a rank of --num-processes 2"),
-     (["--distributed", "--profile", "d"], "ROADMAP A11"),
-     (["--profile", "d"], "ROADMAP A11"),
      (["--coordinator", "localhost:1234"], "go together"),
      (["--num-processes", "2"], "go together"),
      (["--process-id", "0"], "go together")],
 )
 def test_unported_flags_exit_1(tmp_path, capsys, flags, says):
-    """--profile is the one flag not ported (A11); the multi-process
-    triple must come whole and name a rank of its world.  Each is refused
+    """Every flag of the JAX CLI is ported; the multi-process triple must
+    come whole and name a rank of its world.  Each such run is refused
     before any process group or output directory exists."""
     par = _write_par(tmp_path / "p.par", tmp_path / "ic")
     assert cli.main([str(par), "--device", "cpu", *flags]) == 1

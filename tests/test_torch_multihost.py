@@ -21,7 +21,8 @@ JAX package's ``Zeldovich(param).run()``.  Every case writes RVdoubleZel
 * with ``--distributed`` and out of core each rank wrote exactly its own
   z planes and no rank called ``recv``; with ``--sharded`` in core rank 0
   wrote every plane;
-* a ``--part 2`` over 4 ranks refuses the checkpoint 2 ranks cut.
+* a ``--part 2`` over 4 ranks refuses the checkpoint 2 ranks cut;
+* ``--distributed --profile DIR`` writes one trace a rank into DIR.
 """
 
 import contextlib
@@ -89,6 +90,8 @@ CASES = {
     "sharded_ooc_w2": (16, {}, 2, [["--sharded"] + OOC], OUT_OF_CORE, "torchrun"),
     "sharded_part_w2": (16, PLT, 2, [["--sharded"] + P1, ["--sharded"] + P2],
                         OUT_OF_CORE, "torchrun"),
+    # PROFILE: --profile into <case>.trace beside the case's directory
+    "profile_w2": (16, {}, 2, [D + ["PROFILE"]], IN_CORE, "triple"),
 }
 #: --part 1 over 2 ranks, then --part 2 over 4 (must exit 1)
 RESTARTS = {"restart_w4": D, "restart_ooc_w4": D + OOC}
@@ -134,6 +137,12 @@ def _one_device(par, flags):
     return err.getvalue()
 
 
+def _argv(base, name, flags):
+    """The CLI flags of a case's run, PROFILE made ``--profile <trace dir>``."""
+    trace = ["--profile", str(base / f"{name}.trace")]
+    return [a for f in flags for a in (trace if f == "PROFILE" else [f])]
+
+
 def _jobs(base, pars):
     """The job lists of the 2-rank and the 4-rank processes."""
     jobs = {2: [], 4: []}
@@ -141,7 +150,8 @@ def _jobs(base, pars):
         for i, flags in enumerate(runs):
             jobs[world].append(dict(kind="cli", name=f"{name}.{i}", port=_free_port(),
                                     torchrun=join == "torchrun",
-                                    argv=[pars[name], "--device", "cpu", *flags]))
+                                    argv=[pars[name], "--device", "cpu",
+                                          *_argv(base, name, flags)]))
     for name, flags in RESTARTS.items():
         jobs[2].append(dict(kind="cli", name=f"{name}.0", port=_free_port(),
                             argv=[pars[name], "--device", "cpu", *flags, *P1]))
@@ -280,6 +290,23 @@ def test_particles_match_jax(multihost, config):
                 np.testing.assert_allclose(got[f], want[f], rtol=0,
                                            atol=TOL * np.abs(want[f]).max(),
                                            err_msg=f"{case} {name} {f}")
+
+
+def test_distributed_profile_writes_a_trace_a_rank(multihost):
+    """--distributed --profile over 2 processes: one trace a rank, each
+    naming the phases, and the bytes of the same run without --profile."""
+    import json
+
+    base = multihost[0]
+    d = base / "profile_w2.trace"
+    for rank in range(2):
+        (trace,) = d.glob(f"rank{rank}.*.pt.trace.json")
+        names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+        assert {"Model setup (P(k), RNG tables, eigenmodes)", "Inverse FFT",
+                "Output"} <= names
+    assert len(list(d.iterdir())) == 2
+    assert _files(base / "profile_w2") == _files(base / "plain_w2")
 
 
 @pytest.mark.parametrize("case", list(RESTARTS))

@@ -55,8 +55,14 @@ checkpoint paths and exit codes.
       zeldovich.kspace.mm.p{rank}); each rank writes its own planes.
       ZD_Version=1 exits 1 under --sharded and --distributed.
 
---profile (not ported yet) exits 1 naming the ROADMAP item that will
-bring it.
+--profile DIR traces the run with torch.profiler, as the JAX CLI traces it
+with jax.profiler: from just after the memory plan to the end of the run
+(also a run that fails), the host's torch ops and, with --device cuda, the card's
+kernels, copies and NCCL collectives, under ranges named as the timer
+report's phases.  Each rank writes one file a run,
+DIR/rank{R}.<ns>.pt.trace.json (Perfetto, chrome://tracing, TensorBoard);
+with --device cuda a profiler that cannot trace the card fails the run, as
+does a trace of a finished run that holds no activity of the card.
 """
 
 from __future__ import annotations
@@ -66,11 +72,6 @@ import contextlib
 import io
 import sys
 import time
-
-#: unported flag -> (how it shows in args, ROADMAP item)
-_NOT_PORTED = {
-    "--profile": ("profile", "A11 (device traces)"),
-}
 
 
 def main(argv=None):
@@ -100,12 +101,6 @@ def main(argv=None):
                     "is always the complex-free pair route")
     args = ap.parse_args(argv)
 
-    for flag, (attr, item) in _NOT_PORTED.items():
-        given = getattr(args, attr)
-        if given is not None and given is not False:
-            print(f"{flag} is not ported to the torch package yet: ROADMAP "
-                  f"{item}; use python -m zeldovich_tpu", file=sys.stderr)
-            return 1
     if args.coordinator is not None:
         args.distributed = True
     if args.distributed:
@@ -152,15 +147,14 @@ def main(argv=None):
 
 
 def _run(args, mesh, t_total):
-    """The run of main(); ``mesh`` for --sharded, else None."""
+    """The run of main(); ``mesh`` for --sharded, else None: the parameters
+    and the memory plan, then the run's steps (``_steps``), traced with
+    --profile."""
     import torch
 
-    from .models.pipeline import Zeldovich
-    from .ops.synth import fft_kernels_take
-    from .utils.output import OUTPUT_DTYPES, OutputWriter, setup_output_dir
+    from .utils.output import OUTPUT_DTYPES
     from .utils.params import ParameterError, Parameters
     from .utils.parseheader import ParseError
-    from .utils.streamio import stream_xspace
     from .utils.timers import PhaseTimers
 
     if args.part:
@@ -200,6 +194,82 @@ def _run(args, mesh, t_total):
         )
 
     timers = PhaseTimers()
+    try:
+        with _traced(args.profile, args.device,
+                     0 if mesh is None else mesh.rank) as saw_the_card:
+            rc = _steps(args, mesh, param, dtype, gib, timers, t_total)
+    except TraceError as e:
+        print(e, file=sys.stderr)
+        return 1
+    if rc == 0 and not saw_the_card():
+        print(f"--profile: the trace in {args.profile} holds no activity of the "
+              "card (CUPTI traced nothing)", file=sys.stderr)
+        return 1
+    return rc
+
+
+class TraceError(RuntimeError):
+    """--profile cannot trace the card."""
+
+
+#: seconds --profile waits between starting the profiler on the card and
+#: the run's first launch: a trace whose first kernel followed the start
+#: within milliseconds lost all of its device activity in 13 starts of
+#: 1000, none of 1000 with 0.1 s between (torch 2.11, CUDA 12.8, H100;
+#: scripts/torch_profile_start.py --sessions 2000)
+CUPTI_SETTLE_S = 0.1
+
+
+@contextlib.contextmanager
+def _traced(out_dir, device, rank):
+    """--profile: the body inside one torch.profiler trace of this rank,
+    written on the way out (also when the body raises) as
+    ``out_dir/rank{rank}.<ns>.pt.trace.json``; the host's torch ops and,
+    on the card, its kernels, copies and collectives.  On the card a
+    profiler that cannot trace it raises TraceError before the body.
+    Yields a function that says, once the trace is written, whether it
+    holds the card's activity where it was asked to (always true without
+    ``out_dir``, which traces nothing)."""
+    if out_dir is None:
+        yield lambda: True
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import (
+        ProfilerActivity, profile, supported_activities, tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise TraceError("--profile: this torch's profiler cannot trace the card "
+                             "(no CUPTI)")
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(
+        out_dir, worker_name=f"rank{rank}"))
+
+    def saw_the_card():
+        return device != "cuda" or any(e.device_type() == DeviceType.CUDA
+                                       for e in prof.profiler.kineto_results.events())
+
+    prof.start()
+    if device == "cuda":
+        time.sleep(CUPTI_SETTLE_S)
+    try:
+        yield saw_the_card
+    finally:
+        prof.stop()
+
+
+def _steps(args, mesh, param, dtype, gib, timers, t_total):
+    """The steps of _run after its memory plan, timed in ``timers``: model
+    setup, then the in-core, out-of-core or sharded run."""
+    import torch
+
+    from .models.pipeline import Zeldovich
+    from .ops.synth import fft_kernels_take
+    from .utils.output import OutputWriter, setup_output_dir
+    from .utils.streamio import stream_xspace
+
     sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
     # PART1/PART2 boundary state: a chunked y-slab directory (in-core) or
     # the staged grid as a disk memmap (out-of-core)
@@ -279,7 +349,7 @@ def _run(args, mesh, t_total):
             # same precision (split into the pair layout while it loads)
             grid = (param.ppd,) * 3
             takes = {(param.narray, 2, *grid): args.dtype,
-                     (param.narray, *grid): f"complex{8 * itemsize}"}
+                     (param.narray, *grid): f"complex{16 * dtype.itemsize}"}
             shape, held, _ = kspace_layout(ckpt)
             if takes.get(shape) != held.name:
                 print(f"checkpoint holds {held.name} {shape} but this run expects "

@@ -1,8 +1,10 @@
 """Per-phase wall-clock timing, in the spirit of the reference STimer.
 
 Accumulating stopwatches with a per-phase report printed to stderr
-(src/STimer.cc, include/STimer.h).  For device-level traces use
-``jax.profiler.trace`` around a phase (see cli --profile).
+(src/STimer.cc, include/STimer.h).  Each phase is also a
+``torch.profiler.record_function`` range of its name: the CLI's
+``--profile DIR`` trace (``torch.profiler``, the card's kernels with
+``--device cuda``) marks the phases by the names the report prints.
 """
 
 from __future__ import annotations
@@ -53,7 +55,9 @@ class PhaseTimers:
 
     @contextmanager
     def phase(self, name: str):
-        with self[name].timing():
+        from torch.profiler import record_function
+
+        with self[name].timing(), record_function(name):
             yield
 
     def report(self, file=sys.stderr):
