@@ -224,8 +224,10 @@ CUPTI_SETTLE_S = 0.1
 def _traced(out_dir, device, rank):
     """--profile: the body inside one torch.profiler trace of this rank,
     written on the way out (also when the body raises) as
-    ``out_dir/rank{rank}.<ns>.pt.trace.json``; the host's torch ops and,
-    on the card, its kernels, copies and collectives.  On the card a
+    ``out_dir/rank{rank}.<ns>.pt.trace.json``; the host's torch ops and
+    the port's spans on every thread (``profile_all_threads``: the
+    writer thread's too) and, on the card, its kernels, copies and
+    collectives.  On the card a
     profiler that cannot trace it raises TraceError before the body.
     Yields a function that says, once the trace is written, whether it
     holds the card's activity where it was asked to (always true without
@@ -233,6 +235,7 @@ def _traced(out_dir, device, rank):
     if out_dir is None:
         yield lambda: True
         return
+    from torch._C._profiler import _ExperimentalConfig
     from torch.autograd import DeviceType
     from torch.profiler import (
         ProfilerActivity, profile, supported_activities, tensorboard_trace_handler,
@@ -245,7 +248,8 @@ def _traced(out_dir, device, rank):
                              "(no CUPTI)")
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(
-        out_dir, worker_name=f"rank{rank}"))
+        out_dir, worker_name=f"rank{rank}"),
+        experimental_config=_ExperimentalConfig(profile_all_threads=True))
 
     def saw_the_card():
         return device != "cuda" or any(e.device_type() == DeviceType.CUDA

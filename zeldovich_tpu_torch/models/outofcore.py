@@ -34,7 +34,9 @@ stage that matches the run (``check_stage``); a stage without one (the
 JAX package writes none) must have the run's size and the zero y-Nyquist
 planes of every pair stage, so the JAX CLI's complex ``(narray, Y, Z, X)``
 stage, which has the byte count of a float64 pair stage, is refused.
-Each streaming loop runs one slab ahead (utils/streamio.py).
+Each streaming loop runs one slab ahead (utils/streamio.py).  Pass 1 is
+the span ``ooc.pass1``, each write into a stage ``stage.sink``
+(``utils/timers.py``).
 
 ``DistributedOutOfCore`` is the same pipeline over a mesh of ranks
 (``--sharded``/``--distributed --out-of-core``): each rank stages its
@@ -57,6 +59,7 @@ from ..utils.output import OutputWriter, setup_output_dir
 from ..utils.streamio import (
     AsyncSlabWriter, _flush_chunk, slabs_to_device, stream_to_host,
 )
+from ..utils.timers import span
 from .pipeline import Zeldovich, phi_nl
 
 
@@ -75,6 +78,15 @@ def _ysel(y0, ny):
 
 def _zsel(z0, nz):
     return (slice(None), slice(None), slice(None), slice(z0, z0 + nz))
+
+
+def _stage_sink(stage, at=lambda key: key):
+    """A sink that writes its host slab into ``stage[at(key)]``: the span
+    ``stage.sink``."""
+    def sink(key, h):
+        with span("stage.sink"):
+            stage[at(key)] = h
+    return sink
 
 
 class OutOfCoreZeldovich(Zeldovich):
@@ -172,9 +184,7 @@ class OutOfCoreZeldovich(Zeldovich):
     _row0 = 0
 
     def _y_sink(self, stage):
-        def sink(y0, h):
-            stage[_ysel(y0 - self._row0, self.slab)] = h
-        return sink
+        return _stage_sink(stage, lambda y0: _ysel(y0 - self._row0, self.slab))
 
     def _slab_starts(self):
         return range(0, self.param.ppd, self.slab)
@@ -201,10 +211,10 @@ class OutOfCoreZeldovich(Zeldovich):
 
         zkeys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
         stream_to_host(((sel, fwd_y_phi_nl(z)) for sel, z in slabs_to_device(
-            zkeys, stage.__getitem__, self.device)), stage.__setitem__)
+            zkeys, stage.__getitem__, self.device)), _stage_sink(stage))
         ykeys = [_ysel(y0, self.slab) for y0 in self._slab_starts()]
         stream_to_host(((sel, dft_zx(y, -1, out=y)) for sel, y in slabs_to_device(
-            ykeys, stage.__getitem__, self.device)), stage.__setitem__)
+            ykeys, stage.__getitem__, self.device)), _stage_sink(stage))
         return stage
 
     def _phi_pairs(self, phi_stage):
@@ -237,17 +247,18 @@ class OutOfCoreZeldovich(Zeldovich):
     # -- main passes ----------------------------------------------------
     def stage_pass1(self, stage=None):
         """Pass 1: synthesis + z/x inverse DFTs of every y-slab, staged to
-        the host as (narray, 2, y, z, x)."""
+        the host as (narray, 2, y, z, x): the span ``ooc.pass1``."""
         p = self.param
-        phi_stage = self._phi_stage() if p.f_NL != 0 else None
-        if stage is None:
-            stage = self._alloc_stage(p.narray)
+        with span("ooc.pass1"):
+            phi_stage = self._phi_stage() if p.f_NL != 0 else None
+            if stage is None:
+                stage = self._alloc_stage(p.narray)
 
-        phis = (((y0, None) for y0 in self._slab_starts()) if phi_stage is None
-                else self._phi_pairs(phi_stage))
-        stream_to_host(((y0, self._pass1_slab(y0, phi_pair=phi)) for y0, phi in phis),
-                       self._y_sink(stage))
-        self._drop_phi_stage(phi_stage)
+            phis = (((y0, None) for y0 in self._slab_starts()) if phi_stage is None
+                    else self._phi_pairs(phi_stage))
+            stream_to_host(((y0, self._pass1_slab(y0, phi_pair=phi)) for y0, phi in phis),
+                           self._y_sink(stage))
+            self._drop_phi_stage(phi_stage)
         return stage
 
     def pass2(self, stage):
@@ -434,7 +445,7 @@ class DistributedOutOfCore(OutOfCoreZeldovich):
         stream_to_host(self._zslabs(stage, fwd_y_phi_nl), sink)
         ykeys = [_ysel(y0 - self._row0, self.slab) for y0 in self._slab_starts()]
         stream_to_host(((sel, dft_zx(y, -1, out=y)) for sel, y in slabs_to_device(
-            ykeys, stage.__getitem__, self.device)), stage.__setitem__)
+            ykeys, stage.__getitem__, self.device)), _stage_sink(stage))
         return stage
 
     def _phi_pairs(self, phi_stage):

@@ -43,6 +43,7 @@ from ..utils.output import (  # noqa: F401 (output_dtype re-exported)
 )
 from ..utils.params import Parameters
 from ..utils.power import PowerSpectrum, mode_amplitude_tables
+from ..utils.timers import span, tracing
 
 
 def phi_nl(phi, f_NL: float, inv_n3: float):
@@ -64,19 +65,25 @@ class Zeldovich:
     """Parameters -> displacement/velocity fields on ``device``."""
 
     def __init__(self, param: Parameters, dtype=torch.float64, device="cuda"):
+        """The set-up tables, each part a span: ``setup.power`` (P(k) and
+        the mode amplitudes), ``setup.eigmodes`` (the PLT table read),
+        ``setup.rng_tables`` (``SynthTables.build``)."""
         self.param = param
         self.dtype = dtype
         self.device = torch.device(device)
-        self.Pk = PowerSpectrum(param)
-        pk_n2, M_n2 = mode_amplitude_tables(self.Pk, param)
+        with span("setup.power"):
+            self.Pk = PowerSpectrum(param)
+            pk_n2, M_n2 = mode_amplitude_tables(self.Pk, param)
         self.cfg = SynthConfig.from_params(param, self.Pk.fixed_power)
         eig = None
         if param.qPLT:
             print("Using PLT eigenmodes.", file=sys.stderr)
-            eig = plt_ops.load_eigmodes(param.resolve_path(param.PLT_filename))
-        self.tables = SynthTables.build(
-            param.seed, param.ppd, pk_n2, M_n2=M_n2, eig=eig, device=self.device
-        )
+            with span("setup.eigmodes"):
+                eig = plt_ops.load_eigmodes(param.resolve_path(param.PLT_filename))
+        with span("setup.rng_tables"):
+            self.tables = SynthTables.build(
+                param.seed, param.ppd, pk_n2, M_n2=M_n2, eig=eig, device=self.device
+            )
         self._D_source = None
         if param.version == 1:
             # the legacy MT19937 stream, generated on the host
@@ -113,11 +120,19 @@ class Zeldovich:
 
     @property
     def plt_coefs(self):
-        """Cached (4, half, Z, X) PLT coefficient planes; None unless qPLT."""
+        """Cached (4, half, Z, X) PLT coefficient planes; None unless qPLT.
+
+        Computing them is the span ``static.plt_coefs``, the one span
+        around work on the card: while a profiler runs it synchronizes the
+        device at its close, so that its length is the fields' time; with
+        none running nothing waits."""
         if not self.param.qPLT:
             return None
         if self._plt_coefs is None:
-            self._plt_coefs = plt_coef_fields(self.cfg, self.tables, self.dtype)
+            with span("static.plt_coefs"):
+                self._plt_coefs = plt_coef_fields(self.cfg, self.tables, self.dtype)
+                if tracing() and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
         return self._plt_coefs
 
     def kspace_half_pair(self):

@@ -21,11 +21,12 @@ from __future__ import annotations
 import math
 import os
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
 from .params import Parameters
+from .timers import STimer, span
 
 
 def _pwrite_full(fd: int, data, offset: int):
@@ -130,8 +131,9 @@ class OutputWriter:
     bytes_written: int = 0
     use_native: bool = True
     _densfp: object = None
-    write_seconds: float = 0.0
     parallel: bool = False  # multi-process: pwrite at slab offsets
+    #: the seconds of the spans output.pack and output.write
+    _write_timer: STimer = field(default_factory=STimer)
 
     def __post_init__(self):
         p = self.param
@@ -184,6 +186,11 @@ class OutputWriter:
                 os.ftruncate(fd, size)
             self._pfds[n] = fd
         return fd
+
+    @property
+    def write_seconds(self) -> float:
+        """Seconds spent packing and writing slabs."""
+        return self._write_timer.elapsed
 
     @property
     def density_variance(self) -> float:
@@ -253,19 +260,24 @@ class OutputWriter:
         return (math.sqrt(1.0 + 24 * self.param.f_cluster) - 1) * 0.25
 
     def write_slab(self, z: int, slabs: np.ndarray):
-        """Decode + append one z-slab to its ic_ file (and density file)."""
-        import time as _time
-
+        """Decode + append one z-slab to its ic_ file (and density file):
+        the spans output.pack, then output.write (its ``bytes``)."""
         p = self.param
         if p.qoneslab >= 0 and z != p.qoneslab:
             return
-        _t0 = _time.perf_counter()
-        try:
-            self._write_slab(z, slabs)
-        finally:
-            self.write_seconds += _time.perf_counter() - _t0
+        with span("output.pack", self._write_timer):
+            rec, dens = self._pack_slab(z, slabs)
+        with span("output.write", self._write_timer) as counts:
+            before = self.bytes_written
+            if rec is not None:
+                self._emit_records(z, rec)
+            if p.qdensity:
+                self._emit_density(z, dens)
+            counts["bytes"] = self.bytes_written - before
 
-    def _write_slab(self, z: int, slabs: np.ndarray):
+    def _pack_slab(self, z: int, slabs: np.ndarray):
+        """(records or None, density) of one z-slab: the native packer
+        into its buffer, else ``decode_slab``; the stats updated."""
         p = self.param
         if self._native_buf is not None:
             from .. import native
@@ -280,17 +292,10 @@ class OutputWriter:
                 self._native_buf,
                 self._stats,
             ):
-                self._emit_records(z, self._native_buf)
-                if p.qdensity:
-                    dens = np.ascontiguousarray(slabs[0]).real
-                    self._emit_density(z, dens)
-                return
+                return self._native_buf, slabs[0].real
         rec, dens = self.decode_slab(z, slabs)
         self._stats[0] += float(np.sum(dens * dens))
-        if rec is not None:
-            self._emit_records(z, rec)
-        if p.qdensity:
-            self._emit_density(z, dens)
+        return rec, dens
 
     def _emit_records(self, z: int, buf: np.ndarray):
         p = self.param

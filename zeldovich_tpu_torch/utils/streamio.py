@@ -25,6 +25,10 @@ layout (narray, 2, Y, Z, X), and of the out-of-core streaming loops
   ``parallel/multihost.py::write_local_slabs``).
 
 On the CPU both directions are plain host copies.
+
+The host's steps are spans (``utils/timers.py``): ``stage.gather``,
+``copy.wait``, ``output.combine``, ``output.submit_wait`` here, and
+``output.pack``/``output.write`` on the writer's thread.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ import threading
 import numpy as np
 import torch
 
+from .timers import adopt, current, span
+
 
 class AsyncSlabWriter:
     """Runs ``writer.write_slab`` calls on a background thread.
@@ -43,7 +49,9 @@ class AsyncSlabWriter:
     z-order within each ic_* file); all writer-state mutation happens on
     the one worker thread, so OutputWriter needs no locking.  Errors are
     captured and re-raised on the submitting thread at the next submit()
-    or at close().
+    or at close().  The thread's spans take as parent the span open where
+    the writer was made; the submitting thread's waits are spans
+    ``output.submit_wait``.
     """
 
     def __init__(self, writer, depth: int = 4):
@@ -51,11 +59,12 @@ class AsyncSlabWriter:
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._error: BaseException | None = None
         self._t = threading.Thread(
-            target=self._loop, daemon=True, name="zt-slab-writer"
+            target=self._loop, args=(current(),), daemon=True, name="zt-slab-writer"
         )
         self._t.start()
 
-    def _loop(self):
+    def _loop(self, parent):
+        adopt(parent)
         while True:
             item = self._q.get()
             if item is None:
@@ -69,11 +78,13 @@ class AsyncSlabWriter:
     def submit(self, z: int, slab: np.ndarray):
         if self._error is not None:
             raise self._error
-        self._q.put((z, slab))
+        with span("output.submit_wait"):
+            self._q.put((z, slab))
 
     def close(self, close_writer: bool = True):
-        self._q.put(None)
-        self._t.join()
+        with span("output.submit_wait"):
+            self._q.put(None)
+            self._t.join()
         try:
             if self._error is not None:
                 raise self._error
@@ -101,7 +112,8 @@ def _chunk_planes(shape, itemsize, ppd, pair, target_bytes):
 def _flush_chunk(aw: AsyncSlabWriter, z0: int, c, pair: bool):
     h = np.asarray(c)
     if pair:
-        h = h[:, 0] + 1j * h[:, 1]
+        with span("output.combine"):
+            h = h[:, 0] + 1j * h[:, 1]
     for dz in range(h.shape[2]):
         aw.submit(z0 + dz, h[:, :, dz, :])
 
@@ -150,7 +162,8 @@ def stream_to_host(items, sink):
 
 def _sink_pending(sink, pending):
     key, buf, ev, _ = pending
-    ev.synchronize()
+    with span("copy.wait"):
+        ev.synchronize()
     sink(key, buf.numpy())
 
 
@@ -160,29 +173,36 @@ def slabs_to_device(keys, view, device):
     view(key) is a host ndarray, typically a strided slab of a staging
     buffer (RAM or np.memmap); it is never written through.  On CUDA the
     slab is gathered into one of two pinned buffers and copied
-    non-blocking on the current stream.
+    non-blocking on the current stream.  The gather is the span
+    ``stage.gather``, each wait on a copy ``copy.wait``.
     """
     device = torch.device(device)
     bufs, events = [None, None], [None, None]
     for i, key in enumerate(keys):
         src = view(key)
         if device.type == "cpu":
-            yield key, torch.from_numpy(np.array(src))
+            with span("stage.gather"):
+                host = np.array(src)
+            yield key, torch.from_numpy(host)
             continue
         b = i % 2
         if events[b] is not None:
-            events[b].synchronize()  # the copy that last read bufs[b]
+            with span("copy.wait"):
+                events[b].synchronize()  # the copy that last read bufs[b]
         dtype = torch.from_numpy(np.empty(0, src.dtype)).dtype
         bufs[b] = _pinned_like(bufs[b], src.shape, dtype)
-        np.copyto(bufs[b].numpy(), src)
+        with span("stage.gather"):
+            np.copyto(bufs[b].numpy(), src)
         dev = torch.empty(src.shape, dtype=dtype, device=device)
         dev.copy_(bufs[b], non_blocking=True)
         events[b] = torch.cuda.Event()
         events[b].record()
         yield key, dev
-    for ev in events:
-        if ev is not None:
-            ev.synchronize()
+    pending = [ev for ev in events if ev is not None]
+    if pending:
+        with span("copy.wait"):
+            for ev in pending:
+                ev.synchronize()
 
 
 def _zslab_chunk(x) -> int:
