@@ -177,6 +177,19 @@ script exits non-zero without printing a result:
    call the trace correlates with the kernel) lies inside the run's
    "Inverse FFT" range (in core; --part 1: "Mode synthesis") or
    "Out-of-core streamed run" range.  Prints a {"profile": ...} JSON line.
+15. the PLT coefficient kernel (csrc/plt.cu, ``plt_coef_fields`` on the
+   card) against its plain version (``plt_coef_fields_plain``, torch ops
+   on the card), each plane to PLT_TOL of its largest value, in float32
+   and float64, on the shipped 128 table: 16^3 (the direct gather), 24^3
+   (the interpolation, with and without rescaling), 512^3 (the cell's
+   lookup) and its planes [100, 137) (also equal to the same planes of the
+   whole); one launch a call; at 512^3 timed in turns plain, kernel,
+   kernel, plain beside its bound (the four planes written and the table
+   read once at 3.35 TB/s); and a whole 512^3 PLT realization
+   (``Zeldovich.xspace_half_pair``: one PLT launch, B1, B2) against the
+   same realization on the plain version's planes.  Prints a {"plt": ...}
+   JSON line.  Alone: ``python3 -c "import chip_smoke as c;
+   c.phase_card(); c.phase_plt('float64'); c.phase_plt('float32')"``.
 
 Phases 2 to 8 run twice, in float32 and in float64 (the double instances
 of every kernel: against the plain versions to 1e-12 of the largest value
@@ -448,6 +461,13 @@ def phase_card():
                                 if f64 and ln.split(":")[0] in slow else [])
                 check(ln.split(": ", 1)[1].startswith(tuple(ok)),
                       f"local memory in a {tag} kernel: {ln}")
+    # the PLT coefficient kernel (float <2>, <4>, double <2>): no spills (the
+    # library's double pow, a function of its own in the report, may spill)
+    plt = [ln for ln in report if "spill" in ln and " in " not in ln.split(":")[0]
+           and "plt_coefs_kernel" in ln.split(":")[0]]
+    check(len(plt) == 3, f"ptxas reported {len(plt)} PLT coefficient kernels, want 3")
+    for ln in plt:
+        check("0 bytes spill stores" in ln, f"spills in a PLT coefficient kernel: {ln}")
     global DRAW_F64_OPS
     DRAW_F64_OPS = _f64_draw_ops()
 
@@ -3040,6 +3060,100 @@ def phase_profile(parts=("512", "paths", "distributed")):
     say(json.dumps({"profile": {"card": smi(), **res}}))
 
 
+#: phase 15: the PLT coefficient kernel against its plain version, each
+#: plane to this share of its largest value: float64 as
+#: tests/test_torch_synth.py holds the plain version to the JAX package,
+#: float32 4 ulp (a library sqrt or pow may round by one)
+PLT_TOL = {"float64": 1e-13, "float32": 4 * 2.0**-23}
+
+
+def _plt_compare(k, p, dt, what) -> float:
+    """Each of the four planes within PLT_TOL[dt] of its largest value;
+    returns the largest error over the planes, relative."""
+    import torch
+
+    check(k.shape == p.shape and k.dtype == p.dtype,
+          f"{what}: kernel gave {k.dtype} {tuple(k.shape)}, plain {p.dtype} {tuple(p.shape)}")
+    worst = 0.0
+    for j, name in enumerate(("cx", "cy", "cz", "f")):
+        scale = p[j].abs().max().item()
+        err = (k[j] - p[j]).abs().max().item()
+        check(bool(torch.isfinite(k[j]).all()), f"{what} {name}: non-finite kernel output")
+        check(err <= PLT_TOL[dt] * scale,
+              f"{what} {name}: kernel disagrees with plain by {err:.3e} of {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    say(f"  {what}: max|k-p| = {worst:.3e} * max|p| over the planes "
+        f"(tol {PLT_TOL[dt]:.3g}); bit for bit: {bool(torch.equal(k, p))}")
+    return worst
+
+
+def phase_plt(dt="float64") -> dict:
+    """Phase 15: the PLT coefficient kernel against its plain version, its
+    time at 512^3 and a 512^3 PLT realization on its planes, in dt."""
+    import torch
+
+    from zeldovich_tpu_torch import kernels
+    from zeldovich_tpu_torch.ops.modes_real import plt_coef_fields, plt_coef_fields_plain
+
+    dtype = getattr(torch, dt)
+    say(f"== phase 15: PLT coefficient kernel vs plain, {TAG[dt]}, on {smi()}")
+    res = {"dtype": dt, "errs": {}}
+    for ppd, extra in ((16, {}), (24, {}), (24, {"ZD_qPLT_rescale": "1"}), (512, {})):
+        m = model_for(ppd, True, dt=dt, **extra)
+        a = (m.cfg, m.tables, dtype)
+        g = kernels.plt_geometry(ppd, m.tables.eig.shape[0], dtype)
+        tag = (f"{ppd}^3 {TAG[dt]}{' rescaled' if extra else ''} "
+               f"({'direct' if g['step'] else 'interpolated, cap %d' % g['cap']})")
+        before = kernels.plt_launches
+        k = plt_coef_fields(*a)
+        torch.cuda.synchronize()
+        check(kernels.plt_launches == before + 1, f"{tag}: want one launch a call")
+        p = plt_coef_fields_plain(*a)
+        res["errs"][tag] = _plt_compare(k, p, dt, tag)
+        del p
+        if ppd != 512:
+            continue
+        rows = (100, 137)
+        kr = plt_coef_fields(*a, rows)
+        res["errs"][f"{tag} planes {rows}"] = _plt_compare(
+            kr, plt_coef_fields_plain(*a, rows), dt, f"{tag} planes {rows}")
+        check(torch.equal(kr, k[:, rows[0]:rows[1]]),
+              f"{tag}: planes {rows} differ from the same planes of the whole")
+        del kr
+        before = kernels.plt_launches
+        ms, plain_ms = _turns(lambda: plt_coef_fields(*a), lambda: plt_coef_fields_plain(*a))
+        calls = kernels.plt_launches - before
+        # _turns calls the kernel 21 times: a warm-up, 2 rounds of 2 x 5
+        check(calls == 21, f"{tag}: {calls} launches over 21 calls")
+        b = bound(nbytes(k, m.tables.eig), 0.0, dt)
+        say(f"  {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']}: {nbytes(k) / 1e9:.3f} GB written, "
+            f"{nbytes(m.tables.eig) / 1e6:.1f} MB of table), "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it; {calls} launches over 21 calls")
+        res.update(ms=ms, plain_ms=plain_ms, **b, geometry=g)
+        del k, m, a
+        torch.cuda.empty_cache()
+        # a whole realization: one PLT launch, then B1 and B2 on its planes,
+        # against the same realization on the plain version's planes
+        kernels.reset_launches()
+        m = model_for(512, True, dt=dt)
+        xk = m.xspace_half_pair()
+        torch.cuda.synchronize()
+        check(kernels.plt_launches == 1,
+              f"a 512^3 PLT realization launched the PLT kernel {kernels.plt_launches} times")
+        _check_launches("512^3 PLT realization", dict(kernels.launches), HALF)
+        m._plt_coefs = plt_coef_fields_plain(m.cfg, m.tables, dtype)
+        xp = m.xspace_half_pair()
+        res["realization_err"] = compare(xk, xp, tol_for(dt, ROUTE_TOL),
+                                         f"512^3 PLT {TAG[dt]} realization on the kernel's "
+                                         "planes vs the plain planes")
+        say(f"  bit for bit: {bool(torch.equal(xk, xp))}")
+        del xk, xp, m
+        torch.cuda.empty_cache()
+    say(json.dumps({"plt": {"card": smi(), **res}}))
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3094,6 +3208,9 @@ def main(argv=None) -> int:
     stamp("phase 13")
     phase_profile()
     stamp("phase 14")
+    for dt in (F32, F64):
+        phase_plt(dt)
+    stamp("phase 15")
     card = smi()
 
     def entry(dt, name, source, replaces, err, ms, **more):

@@ -15,7 +15,10 @@ launch wrapper picks the entry by the dtype of the tensor it writes.
 
 Each launch wrapper adds one to its entry of ``launches`` (one counter a
 kernel, whatever the element type); a run reads the counts to show that
-its main path went through the kernels.
+its main path went through the kernels.  The PLT coefficient kernel
+counts in ``plt_launches`` instead: the benchmark's work model
+(bench_torch/kernelwork.py) reckons the work of every key of
+``launches`` and has no entry for it yet.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 PKG = Path(__file__).resolve().parent.parent
@@ -43,14 +47,20 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 launches = {"halfspace_pack_zx": 0, "c2r_y": 0, "halfspace_boxmuller": 0,
             "zx_dft": 0, "y_dft": 0, "boxmuller": 0, "halfspace_pack": 0}
 
+#: launches of the PLT coefficient kernel (launch_plt_coefs) since the last
+#: reset_launches()
+plt_launches = 0
+
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the kernels' element types -> (entry-point suffix, the C type of a scalar)
 REAL = {torch.float32: ("", ctypes.c_float), torch.float64: ("_f64", ctypes.c_double)}
 
 
 def reset_launches():
+    global plt_launches
     for k in launches:
         launches[k] = 0
+    plt_launches = 0
 
 
 def _sources():
@@ -157,7 +167,8 @@ def library() -> ctypes.CDLL:
                     ("zt_b5_boxmuller_at", [_VP] * 10 + [_LL, _I, _I, _I, _VP]),
                     ("zt_b3_pack", [_VP] * 6 + [_I] * 3 + [R, R, _I, _VP]),
                     ("zt_zx_dft", [_VP] * 3 + [_I, _I, _LL, _I, _VP]),
-                    ("zt_y_dft", [_VP] * 3 + [_I, _LL, _LL, _I, _VP])):
+                    ("zt_y_dft", [_VP] * 3 + [_I, _LL, _LL, _I, _VP]),
+                    ("zt_plt_coefs", [_VP] * 2 + [_I] * 9 + [R] * 6 + [_I, _I, _VP])):
                 fn = getattr(lib, name + suffix)
                 fn.restype, fn.argtypes = _I, argtypes
         lib.zt_error_string.restype = ctypes.c_char_p
@@ -270,3 +281,80 @@ def launch_y_dft(pair, out, tw, n, inner, batch):
         out.device.index, _stream(out))
     _check(lib, rc, "y_dft")
     launches["y_dft"] += 1
+
+
+#: the PLT coefficient kernel's most threads a block (csrc/plt.cu's
+#: PLT_THREADS) and the z rows a block walks
+PLT_THREADS, PLT_ZT = 128, 8
+
+
+def nyquist_fix(f, eig_ppd: int):
+    """The lookup's rule at the +/- Nyquist discontinuity of the table
+    (ops/plt.py): f in (E/2, E/2 + 1) moves up to E/2 + 1."""
+    return np.where((f > eig_ppd // 2) & (f < eig_ppd // 2 + 1), np.floor(f + 1), f)
+
+
+def plt_geometry(n: int, eig_ppd: int, dtype) -> dict:
+    """The PLT coefficient kernel's launch at ppd n on a table of eig_ppd:
+    ``vec`` x a thread (16-byte stores; 8-byte float ones where n % 4),
+    ``threads`` a block (a tile of threads * vec x), ``zt`` z rows a block,
+    ``step`` (E / n where n divides E, the direct gather; else 0),
+    ``scale`` = fl(E / n) in dtype, and ``cap``: the most table x entries
+    a tile stages when the lookup interpolates, computed in dtype as the
+    kernel computes each tile's range (its first x's lower neighbour to
+    its last x's upper one)."""
+    npf = np.float32 if dtype == torch.float32 else np.float64
+    vec = 4 if npf is np.float32 and n % 4 == 0 else 2
+    threads = min(PLT_THREADS, (n // vec + 31) // 32 * 32)
+    step = eig_ppd // n if eig_ppd % n == 0 else 0
+    scale = npf(eig_ppd) / npf(n)
+    cap = 0
+    if not step:
+        ixl = nyquist_fix(scale * np.arange(n, dtype=npf), eig_ppd).astype(np.int64)
+        x0 = np.arange(0, n, threads * vec)
+        cap = int((ixl[np.minimum(x0 + threads * vec, n) - 1] + 2 - ixl[x0]).max())
+        izl = int(nyquist_fix(scale * npf(n // 2), eig_ppd))
+        if izl > eig_ppd // 2:
+            raise ValueError(f"ppd {n} on a {eig_ppd} eigenmode table: the lookup "
+                             f"of kz = {n // 2} lands at iz {izl}, outside the table")
+    return {"vec": vec, "threads": threads, "zt": PLT_ZT, "step": step,
+            "scale": float(scale), "cap": cap}
+
+
+def launch_plt_coefs(eig, out, y0, fund, fund2, f_cluster, rescale_base,
+                     target_f, rescale):
+    """The PLT coefficient planes (cx, cy, cz, f) of the generated planes
+    [y0, y0 + rows) into out (4, rows, n, n), from the float64 eigenmode
+    table eig (E, E, E/2 + 1, 4): one launch.  The scalars are the plain
+    version's, rounded to out's element type."""
+    if out.dtype not in REAL:
+        raise TypeError(f"plt_coefs: the kernel is float32 and float64, got {out.dtype}")
+    E = eig.shape[0] if eig.dim() == 4 else -1
+    if eig.dtype != torch.float64 or tuple(eig.shape) != (E, E, E // 2 + 1, 4):
+        raise ValueError(f"plt_coefs: want a float64 (E, E, E/2 + 1, 4) eigenmode "
+                         f"table, got {eig.dtype} {tuple(eig.shape)}")
+    if out.dim() != 4 or out.shape[0] != 4 or out.shape[2] != out.shape[3]:
+        raise ValueError(f"plt_coefs: want out (4, rows, n, n), got {tuple(out.shape)}")
+    n, rows = out.shape[3], out.shape[1]
+    if n % 2 or not (n >= 2 and rows >= 1 and 0 <= y0 and y0 + rows <= n // 2):
+        raise ValueError(f"plt_coefs: planes [{y0}, {y0 + rows}) of ppd {n}: want an "
+                         f"even ppd and 0 <= y0 < y0 + rows <= ppd/2")
+    if not (eig.is_contiguous() and out.is_contiguous()):
+        raise ValueError("plt_coefs: the table and out must be contiguous")
+    if eig.device.type != "cuda" or out.device != eig.device:
+        raise ValueError(f"plt_coefs: want both on one CUDA device, got the table on "
+                         f"{eig.device} and out on {out.device}")
+    if eig.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("plt_coefs: the table and out must be 16-byte aligned")
+    g = plt_geometry(n, E, out.dtype)
+    if 16 * g["cap"] * out.element_size() > 232448:
+        raise ValueError(f"plt_coefs: ppd {n} on a {E} table stages {g['cap']} x "
+                         "entries a block, past the card's 227 KB of shared memory")
+    lib = library()
+    rc = _entry(lib, "zt_plt_coefs", out)(
+        eig.data_ptr(), out.data_ptr(), n, E, y0, rows, g["step"], g["cap"],
+        g["threads"], g["vec"], g["zt"], g["scale"], fund, fund2, f_cluster,
+        rescale_base, target_f, int(rescale), out.device.index, _stream(out))
+    _check(lib, rc, "plt_coefs")
+    global plt_launches
+    plt_launches += 1

@@ -4,7 +4,8 @@ Port of the main-path parts of ``zeldovich_tpu/ops/modes_real.py``:
 
 * ``pk_effective``: P(k) with the zero rules folded in (pk = 0 zeroes a
   mode exactly, since sqrt(-0 * log R) == 0);
-* ``plt_coef_fields``: the PLT eigenmode coefficient planes;
+* ``plt_coef_fields``: the PLT eigenmode coefficient planes (on a CUDA
+  device the kernel of csrc/plt.cu, else ``plt_coef_fields_plain``);
 * ``synthesize_half_pair``: the packed half-SPECTRUM
   ``(narray, 2, 2, half+1, Z, X)`` = (array, +/- packing, re/im, ky, Z, X),
   with the ky=0 self-conjugate fixup and the zero y-Nyquist row;
@@ -27,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from . import pcg_device
 from .modes import SynthConfig, SynthTables, hermitian_source, zero_rules
 
@@ -114,10 +116,32 @@ def plt_coef_fields(cfg: SynthConfig, tables: SynthTables, dtype, rows=None):
     """Setup-time PLT coefficient planes, stacked (4, half, Z, X).
 
     ``plt_coefs_at`` over the generated half space (``rows = (y0, y1)``:
-    the planes [y0, y1) alone): one stacked tensor, so the kernel takes
-    one pointer.  Chunked over y: the 8-point gather holds ~8 chunk-sized
-    (.., 4) temporaries at once.
+    the planes [y0, y1) alone): one stacked tensor, so the synthesis
+    kernels take one pointer.  On a CUDA device one launch of the
+    hand-written kernel (csrc/plt.cu) writes it; on the CPU the plain
+    version, ``plt_coef_fields_plain``, computes it.
     """
+    dev = tables.device
+    if dev.type == "cpu":
+        return plt_coef_fields_plain(cfg, tables, dtype, rows)
+    if tables.eig is None:
+        raise ValueError("PLT needs the eigenmode table (SynthTables.eig)")
+    y0, y1 = _planes(cfg, rows)
+    out = torch.empty((4, y1 - y0, cfg.ppd, cfg.ppd), dtype=dtype, device=dev)
+    npf = _np_dtype(dtype)
+    kernels.launch_plt_coefs(
+        tables.eig, out, y0, float(npf(cfg.fundamental)),
+        float(npf(cfg.fundamental) ** 2), float(npf(cfg.f_cluster)),
+        float(npf(cfg.plt_rescale_base)), float(npf(cfg.plt_target_f)),
+        cfg.qPLTrescale,
+    )
+    return out
+
+
+def plt_coef_fields_plain(cfg: SynthConfig, tables: SynthTables, dtype, rows=None):
+    """Plain version of ``plt_coef_fields`` on any device: ``plt_coefs_at``
+    in chunks over y, since the 8-point gather holds ~8 chunk-sized (.., 4)
+    temporaries at once."""
     ppd = cfg.ppd
     y0, y1 = _planes(cfg, rows)
     dev = tables.device
