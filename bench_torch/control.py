@@ -32,13 +32,14 @@ def lower(config):
 
 
 def control(cell_name: str, seed: int, seconds: float, device: str, root=run.ROOT,
-            resize=None, run_dir=None) -> dict:
-    """The control's result for one seed."""
+            resize=None, run_dir=None, spec=None) -> dict:
+    """The control's result for one seed (``spec``: as ``run.measure``)."""
     def both(config):
         if resize is not None:
             resize(config)
         lower(config)
-    return run.measure(cell_name, seed, seconds, False, device, root, run_dir, resize=both)
+    return run.measure(cell_name, seed, seconds, False, device, root, run_dir, resize=both,
+                       spec=spec)
 
 
 def main(argv=None) -> int:

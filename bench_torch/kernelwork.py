@@ -9,15 +9,20 @@ Box-Muller) 100 32-bit operations and, in float64, 146 float64 ones on
 top (the count of the float64 draw chain's SASS on the card, PR 7).
 
 The work is reckoned from the cell's shapes for each launch counter of
-the program's ``kernels.launches``: what one launch of that entry does on
-the route the cell takes.  A counter that moved and has no entry here for
-the route means the route changed, and the metrics built on it stay
-silent rather than guess.
+the program's ``kernels.launches``, and for ``plt_coefs`` from
+``kernels.plt_launches`` (the PLT coefficient kernel, which writes its
+four planes and reads its eigenmode table once): what one launch of that
+entry does on the route the cell takes.  In a cell of N ranks it is rank
+0's share: its ky planes before the exchange and its z-slab after it,
+since the counters and the trace are rank 0's.  A counter that moved and
+has no entry here for the route means the route changed, and the metrics
+built on it stay silent rather than guess.
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 #: NVIDIA H100 SXM data sheet: HBM3 rate, float32 and float64 vector peaks
 HBM_BPS, F32_OPS, F64_OPS = 3.35e12, 67e12, 33.5e12
@@ -40,32 +45,40 @@ def fft_ops(elems: float, n: int) -> float:
     return 5.0 * elems * math.log2(n)
 
 
-def _tables(n: int) -> int:
-    """Bytes of the pcg64 tables a draw kernel reads: the plane states
-    (n/2 x 16) and the (z, x) jump maps (2 x n^2 x 16)."""
-    return (n // 2) * 16 + 2 * 2 * n * n * 16
+def _tables(n: int, planes: int) -> int:
+    """Bytes of the pcg64 tables a draw kernel reads: the states of its
+    ``planes`` planes (16 each) and the (z, x) jump maps (2 x n^2 x 16)."""
+    return planes * 16 + 2 * 2 * n * n * 16
 
 
 def per_launch(route: str, n: int, narray: int, itemsize: int, plt: bool,
-               slab: int = 0) -> dict:
+               slab: int = 0, ranks: int = 1, table: int = 0) -> dict:
     """Seconds at the bound of one launch of each counter on ``route``.
 
     ``half``: the in-core half-spectrum step (B1 = synthesis, packing and
     the x and z DFTs of the packed half spectrum; B2 = the c2r DFT along y
-    in place).  ``ooc``: the out-of-core passes with y-slabs of ``slab``
-    rows (B5 draws of a slab's modes at their source indices, zx on the
-    slab, y on a z-slab of the same size).
+    in place), with PLT the coefficient planes (``table`` bytes of
+    eigenmodes read).  Over ``ranks`` ranks, rank 0's share: B1 and the
+    planes on its ky planes (the first ceil(n/2 / ranks)), B2 on its
+    n / ranks z planes.  ``ooc``: the out-of-core passes with y-slabs of
+    ``slab`` rows (B5 draws of a slab's modes at their source indices, zx
+    on the slab, y on a z-slab of the same size).
     """
-    s, half, grid = itemsize, n // 2, n ** 3
+    s, half = itemsize, n // 2
     if route == "half":
-        packed = narray * 2 * 2 * half * n * n * s  # B1's output
-        coefs = 4 * half * n * n * s if plt else 0
-        return {
+        rows = -(-half // ranks)  # rank 0's ky planes
+        packed = narray * 2 * 2 * rows * n * n * s  # B1's output
+        coefs = 4 * rows * n * n * s if plt else 0
+        zpacked = narray * 2 * 2 * half * (n // ranks) * n * s  # B2's z-slab
+        out = {
             "halfspace_pack_zx": bound_s(
-                half * n * n * s + _tables(n) + coefs + packed,
-                2 * fft_ops(packed / s / 2, n), s, draws=half * n * n),
-            "c2r_y": bound_s(2 * packed, fft_ops(packed / s / 2, n), s),
+                rows * n * n * s + _tables(n, rows) + coefs + packed,
+                2 * fft_ops(packed / s / 2, n), s, draws=rows * n * n),
+            "c2r_y": bound_s(2 * zpacked, fft_ops(zpacked / s / 2, n), s),
         }
+        if plt:
+            out["plt_coefs"] = bound_s(coefs + table, 0.0, s)
+        return out
     if route == "ooc":
         # B5 draws a slab in launches of at most 2^24 modes
         modes = max(1, min(slab, (1 << 24) // (n * n))) * n * n
@@ -73,7 +86,7 @@ def per_launch(route: str, n: int, narray: int, itemsize: int, plt: bool,
         return {
             # operands: three int32 source indices, P(k) and the live mask;
             # outputs: D's real and imaginary parts
-            "boxmuller": bound_s(modes * (3 * 4 + 2 * s) + _tables(n) + 2 * modes * s,
+            "boxmuller": bound_s(modes * (3 * 4 + 2 * s) + _tables(n, half) + 2 * modes * s,
                                  0.0, s, draws=modes),
             "zx_dft": bound_s(2 * block, 2 * fft_ops(block / s / 2, n), s),
             "y_dft": bound_s(2 * block, fft_ops(block / s / 2, n), s),
@@ -81,14 +94,17 @@ def per_launch(route: str, n: int, narray: int, itemsize: int, plt: bool,
     raise ValueError(f"no work model for route {route!r}")
 
 
-def model_for(config: dict) -> dict:
-    """``per_launch`` of the route a configuration file's run takes."""
+def model_for(config: dict, root: Path, ranks: int = 1) -> dict:
+    """``per_launch`` of the route a configuration file's run takes over
+    ``ranks`` ranks (rank 0's share); file names resolve against ``root``."""
     par, flags = config["par"], config.get("flags", [])
     n = round(int(par["NP"]) ** (1 / 3))
     plt = bool(int(par.get("ZD_qPLT", 0)))
     narray, s = (4 if plt else 2), (8 if config["dtype"] == "float64" else 4)
     if "--out-of-core" not in flags:
-        return per_launch("half", n, narray, s, plt)
+        # the eigenmode table: its file less the 4-byte header
+        table = (Path(root) / par["ZD_PLT_filename"]).stat().st_size - 4 if plt else 0
+        return per_launch("half", n, narray, s, plt, ranks=ranks, table=table)
     # the program's slab: the most y rows of the stage within --slab-mb that
     # divide ppd
     mb = int(flags[flags.index("--slab-mb") + 1]) if "--slab-mb" in flags else 2048

@@ -77,8 +77,9 @@ def end_to_end(mix, window_s: float) -> dict:
     return {"file_Mpart_s": mix.particles() / window_s / 1e6}
 
 
-def check(mix, r, ref) -> dict:
+def check(mix, r, fields) -> dict:
     par = mix.config["par"]
     plt = bool(int(par.get("ZD_qPLT", 0)))
     f_vel = ((1.0 + 24 * float(par.get("ZD_f_cluster", 1.0))) ** 0.5 - 1) * 0.25
-    return checks.check_files(r["outdir"], mix.ppd, int(par["CPD"]), ref, plt, f_vel, mix.device)
+    return checks.check_files(r["outdir"], mix.ppd, int(par["CPD"]), fields, plt, f_vel,
+                              mix.device)

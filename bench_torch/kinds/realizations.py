@@ -23,7 +23,7 @@ from mixes import par_keys, sync
 POINTS = 4096
 
 
-def _model(mix, seed):
+def model(mix, seed):
     from zeldovich_tpu_torch.models.pipeline import Zeldovich
     from zeldovich_tpu_torch.utils.params import Parameters
 
@@ -34,19 +34,21 @@ def _model(mix, seed):
 
 def warm_up(mix):
     """One realization at the cell's shapes."""
-    m = _model(mix, 1)
+    m = model(mix, 1)
     out = m.xspace_half_pair()
     del out, m
     mix.points = None
 
 
-def step(mix, r) -> bool:
+def realize(mix, r, forward):
+    """One request's model and ``forward(model)``, each part in a synced
+    harness range; returns the step's output."""
     from torch.profiler import record_function
 
     mix.held = None  # one realization alive at a time
     t0 = time.perf_counter()
     with record_function("bench.setup_tables"):
-        m = _model(mix, r["seed"])
+        m = model(mix, r["seed"])
         sync(mix.device)
     t1 = time.perf_counter()
     with record_function("bench.static_fields"):
@@ -54,15 +56,19 @@ def step(mix, r) -> bool:
         sync(mix.device)
     t2 = time.perf_counter()
     with record_function("bench.step"):
-        out = m.xspace_half_pair()
+        out = forward(m)
         sync(mix.device)
+    r["spans"]["setup_tables"] = t1 - t0
+    r["spans"]["static_fields"] = t2 - t1
+    return out
+
+
+def step(mix, r) -> bool:
+    out = realize(mix, r, lambda m: m.xspace_half_pair())
     if mix.points is None:
         mix.points = checks.sample_points(mix.seed, tuple(out.shape), POINTS, out.device)
     r["values"] = out.reshape(-1)[mix.points]  # the consumer's read
     r["shape"] = tuple(out.shape)
-    r["spans"]["setup_tables"] = t1 - t0
-    r["spans"]["static_fields"] = t2 - t1
-    del m
     mix.held = (r, out)
     return True
 
@@ -71,8 +77,7 @@ def end_to_end(mix, window_s: float) -> dict:
     return {"mem_Mpart_s": mix.particles() / window_s / 1e6}
 
 
-def check(mix, r, ref) -> dict:
+def check(mix, r, fields) -> dict:
     if "whole" in r:
-        return checks.check_pairs(r["whole"], ref)
-    return checks.check_points(r["values"], mix.points, r["shape"], ref)
-
+        return checks.check_pairs(r["whole"], fields, mix.ppd)
+    return checks.check_points(r["values"], mix.points, r["shape"], fields)

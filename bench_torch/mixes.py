@@ -10,9 +10,12 @@ is a data file; a new kind is a module of its own.
 
 Every request has its own ``ZD_Seed`` from (``--seed``, request index).
 The window starts before the first request and closes when the request
-running at ``seconds`` has ended.  The program is imported inside the
-functions: the benchmark takes from it the system under test and its
-counters and ranges only.
+running at ``seconds`` has ended.  A kind that sets ``COLLECTIVE = True``
+runs on every rank of a mesh in lockstep (``lockstep.py``): rank 0's
+clock decides each request, a request is ok where it is ok on every
+rank, and a rank that raises leaves the run.  The program is imported
+inside the functions: the benchmark takes from it the system under test
+and its counters and ranges only.
 """
 
 from __future__ import annotations
@@ -63,12 +66,14 @@ def sync(device):
 class Mix:
     """One cell's traffic: set-up, the window, and what the check needs.
     ``held`` is the last request's output that its kind keeps on the
-    device until the window has closed, as (request, tensor)."""
+    device until the window has closed, as (request, tensor).  ``mesh``:
+    this rank's mesh, for a collective kind."""
 
     def __init__(self, root: Path, run_dir: Path, config: dict, traffic: dict,
-                 seed: int, device: str):
+                 seed: int, device: str, mesh=None):
         self.root, self.run_dir = root, run_dir
         self.config, self.traffic, self.seed, self.device = config, traffic, seed, device
+        self.mesh = mesh
         self.kind = load_kind(traffic["kind"])
         self.dtype = getattr(torch, config["dtype"])
         self.ppd = round(int(config["par"]["NP"]) ** (1 / 3))
@@ -91,33 +96,58 @@ class Mix:
 
     def run_window(self, seconds: float) -> float:
         """Requests until the one running at ``seconds`` has ended; returns
-        the window's length in seconds."""
+        the window's length in seconds.  In lockstep an exception leaves
+        the window, and this rank the run."""
         from torch.profiler import record_function
 
         label = f"bench.{self.traffic['kind']}"
         t_w0 = time.perf_counter()
         with record_function("bench.window"):
             i = 0
-            while i == 0 or time.perf_counter() - t_w0 < seconds:
+            while self._go(i == 0 or time.perf_counter() - t_w0 < seconds):
                 r = {"index": i, "seed": request_seed(self.seed, i), "spans": {}}
                 r["t0"] = time.perf_counter()
                 with record_function(label):
-                    try:
-                        r["ok"] = self.kind.step(self, r)
-                    except Exception:  # a failed request is counted, the run goes on
-                        traceback.print_exc(file=sys.stderr)
-                        r["ok"] = False
+                    r["ok"] = self._step(r) if self.mesh is None else self._lockstep(r)
                 sync(self.device)
                 r["t1"] = time.perf_counter()
                 self.requests.append(r)
                 i += 1
         return time.perf_counter() - t_w0
 
+    def _step(self, r) -> bool:
+        try:
+            return self.kind.step(self, r)
+        except Exception:  # a failed request is counted, the run goes on
+            traceback.print_exc(file=sys.stderr)
+            return False
+
+    def _go(self, go: bool) -> bool:
+        """Rank 0's go or stop, on every rank of the mesh."""
+        if self.mesh is None:
+            return go
+        import torch.distributed as dist
+
+        t = torch.tensor([int(go)], dtype=torch.int32, device=self.mesh.device)
+        dist.broadcast(t, 0, group=self.mesh.group)
+        return bool(t.item())
+
+    def _lockstep(self, r) -> bool:
+        """One request on this rank, synced; ok where it is ok on every
+        rank (the all-reduce is the request's closing barrier).  Nothing
+        is caught: the other ranks could not go on without this one."""
+        ok = self.kind.step(self, r)
+        sync(self.device)
+        return self.mesh.agree(ok)
+
     def release(self):
-        """The held output to the host, its device memory freed."""
+        """The held output for the check: on one rank copied to the host,
+        its device memory freed; in lockstep a rank's slab stays on its
+        card (four ranks' slabs of a 1024^3 PLT float64 output in pageable
+        host memory would take 69 GB of the host's RAM)."""
         if self.held is not None:
             r, out = self.held
-            r["whole"] = out.cpu()
+            r["whole"] = out if self.mesh is not None else out.cpu()
             self.held = None
 
     def particles(self) -> int:

@@ -316,10 +316,17 @@ def _path(par, key, root):
 
 
 def fields(par: dict, root, dtype=torch.float64, device="cuda", chunk_modes=1 << 22):
-    """The configuration's x-space fields, a dict FIELDS -> (Y, Z, X)
-    tensors of ``dtype`` on ``device`` (the velocities with PLT only:
-    without, each is one growth rate times its displacement).  ``par``
-    holds the .par keys; relative file names resolve against ``root``."""
+    """The configuration's x-space fields one at a time, ``(name, (Y, Z, X)
+    tensor of dtype on device)`` in FIELDS order (the velocities with PLT
+    only: without, each is one growth rate times its displacement).
+    ``par`` holds the .par keys; relative file names resolve against
+    ``root``.
+
+    One spectrum is on the device at a time: D, the density's, is kept on
+    the host (pinned beside a card) as it is made, and every other field is
+    its coefficient times i D, read back a chunk at a time.  A field's
+    tensor is dropped when the next is asked for, so the caller should
+    drop it too."""
     for k, v in SUPPORTED.items():
         if _num(par, k, v) != v:
             raise NotImplementedError(f"the reference computes {k} = {v} only")
@@ -349,48 +356,62 @@ def fields(par: dict, root, dtype=torch.float64, device="cuda", chunk_modes=1 <<
 
     cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
     names = FIELDS if plt else FIELDS[:4]
-    spectra = {name: torch.zeros((ppd, ppd, half + 1), dtype=cdt, device=device)
-               for name in names}  # [z, x, ky]: irfftn halves the last axis
     z = torch.arange(ppd, device=device)
     kz = torch.where(z > half, z - ppd, z)[None, :, None]
     kx = torch.where(z > half, z - ppd, z)[None, None, :]
     cy = max(1, min(half, chunk_modes // (ppd * ppd)))
-    for y0 in range(0, half, cy):
-        y1 = min(half, y0 + cy)
-        ky = torch.arange(y0, y1, device=device)[:, None, None]
-        n2 = kx * kx + ky * ky + kz * kz
+    mirror = (z[:, None] > half) | ((z[:, None] == 0) & (z[None, :] > half))
+    refl = (ppd - z) % ppd
+
+    def planes():
+        """Each chunk of ky planes: (y0, y1, ky, n2)."""
+        for y0 in range(0, half, cy):
+            y1 = min(half, y0 + cy)
+            ky = torch.arange(y0, y1, device=device)[:, None, None]
+            yield y0, y1, ky, kx * kx + ky * ky + kz * kz
+
+    def xspace(s):
+        """The field of spectrum ``s`` ([z, x, ky]; irfftn halves the last
+        axis) after the Hermitian fixup of its ky = 0 plane, [y, z, x]."""
+        p0 = s[:, :, 0]
+        s[:, :, 0] = torch.where(mirror, p0[refl[:, None], refl[None, :]].conj(), p0)
+        s[0, 0, 0] = 0
+        x = torch.fft.irfftn(s, s=(ppd, ppd, ppd), dim=(0, 1, 2), norm="forward")
+        return x.permute(2, 0, 1).contiguous()  # [z, x, y] -> [y, z, x]
+
+    keep = torch.empty((half, ppd, ppd), dtype=cdt,
+                       pin_memory=torch.device(device).type == "cuda")  # D, [ky, z, x]
+    s = torch.zeros((ppd, ppd, half + 1), dtype=cdt, device=device)
+    for y0, y1, ky, n2 in planes():
         zero = (kx.abs() == half) | (ky.abs() == half) | (kz.abs() == half) | outside[n2]
         pk = torch.where(zero, 0.0, pk_n2[n2]).to(dtype)
         R, T = draws.uniforms(y0, y1, dtype)
         amp = torch.sqrt(pk) if fixed else torch.sqrt(-pk * torch.log(R))
         theta = (2 * math.pi) * T
         D = torch.complex(amp * torch.cos(theta), amp * torch.sin(theta))
-        k2 = n2.to(dtype) * fund2
-        ik2 = torch.where(n2 == 0, 0.0, 1.0 / torch.where(n2 == 0, 1.0, k2))
-        if plt:
-            vec, lam = plt_vectors(kx, ky, kz, ppd, table, dtype)
-            f = (torch.sqrt(1.0 + 24.0 * lam * float(npf(f_cluster))) - 1.0) * 0.25
-            coef = [v * (fund_d * ik2) for v in vec]
-        else:
-            coef = [k.to(dtype) * (fund_d * ik2) for k in (kx, ky, kz)]
-        iD = 1j * D
-        parts = {"density": D}
-        for j, ax in enumerate("xyz"):
-            parts[f"disp_{ax}"] = coef[j] * iD
+        s[:, :, y0:y1] = D.permute(1, 2, 0)
+        keep[y0:y1].copy_(D)
+    out = xspace(s)
+    del s
+    yield "density", out
+    del out
+    for name in names[1:]:
+        j = "xyz".index(name[-1])
+        s = torch.zeros((ppd, ppd, half + 1), dtype=cdt, device=device)
+        for y0, y1, ky, n2 in planes():
+            k2 = n2.to(dtype) * fund2
+            ik2 = torch.where(n2 == 0, 0.0, 1.0 / torch.where(n2 == 0, 1.0, k2))
             if plt:
-                parts[f"vel_{ax}"] = parts[f"disp_{ax}"] * f
-        for name, v in parts.items():
-            spectra[name][:, :, y0:y1] = v.permute(1, 2, 0)
-    out = {}
-    mirror = (z[:, None] > half) | ((z[:, None] == 0) & (z[None, :] > half))
-    refl = (ppd - z) % ppd
-    for name in names:
-        s = spectra.pop(name)
-        p0 = s[:, :, 0]
-        s[:, :, 0] = torch.where(mirror, p0[refl[:, None], refl[None, :]].conj(), p0)
-        s[0, 0, 0] = 0
-        x = torch.fft.irfftn(s, s=(ppd, ppd, ppd), dim=(0, 1, 2), norm="forward")
+                vec, lam = plt_vectors(kx, ky, kz, ppd, table, dtype)
+                coef = vec[j] * (fund_d * ik2)
+            else:
+                coef = (kx, ky, kz)[j].to(dtype) * (fund_d * ik2)
+            iD = 1j * keep[y0:y1].to(device, non_blocking=True)
+            v = coef * iD
+            if name.startswith("vel_"):
+                v = v * ((torch.sqrt(1.0 + 24.0 * lam * float(npf(f_cluster))) - 1.0) * 0.25)
+            s[:, :, y0:y1] = v.permute(1, 2, 0)
+        out = xspace(s)
         del s
-        out[name] = x.permute(2, 0, 1).contiguous()  # [z, x, y] -> [y, z, x]
-        del x
-    return out
+        yield name, out
+        del out

@@ -46,7 +46,8 @@ def work_counts(bench) -> list:
     out = []
     for cell in bench["workloads"]:
         cfg = json.loads((HERE / "configs" / f"{cell['config']}.json").read_text())
-        out += [(cell["name"], k, v) for k, v in sorted(kernelwork.model_for(cfg).items())]
+        model = kernelwork.model_for(cfg, run.ROOT, int(cell["chips"]))
+        out += [(cell["name"], k, v) for k, v in sorted(model.items())]
     return out
 
 

@@ -32,8 +32,9 @@ def warm_profiler(device: str):
 
 
 @contextlib.contextmanager
-def profiled(device: str, path: Path):
-    """The body inside one profiler; its Chrome trace written to ``path``."""
+def profiled(device: str):
+    """The body inside one profiler, which it yields; the caller writes
+    its Chrome trace (``export_chrome_trace``) when it has the time."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
@@ -42,10 +43,9 @@ def profiled(device: str, path: Path):
     if device == "cuda":
         time.sleep(0.1)  # CUPTI misses a kernel that follows its start at once
     try:
-        yield
+        yield prof
     finally:
         prof.stop()
-        prof.export_chrome_trace(str(path))
 
 
 def kernel_names(package_dir: Path) -> set[str]:
