@@ -19,12 +19,18 @@ values agree to rounding, not bit for bit.  The CLI cases run ``--sharded``
 through ``torch.distributed.run`` with two ranks and compare ``ic_*``
 bytes with a one-rank run of the same arithmetic: the in-core run on the
 half route, the ``--out-of-core`` run on the full grid (its slab synthesis
-and transform order are the sharded route's).
+and transform order are the sharded route's).  The span cases run the
+32^3 PLT step over 2 and 4 ranks under a CPU profiler: the exchange's
+``shard.exchange`` record and its counts, the rank's ``static.plt_coefs``,
+the slabs bit for bit those of a run without a profiler; and the
+benchmark's two readers of the exchange span (``bench_torch/metrics/``).
 """
 
+import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -220,8 +226,6 @@ def test_one_rank_cli_in_process(tmp_path, capsys):
 def _checkpoint_of_two_ranks(outdir, out_of_core):
     """The meta files a --distributed --part 1 over two ranks leaves (the
     in-core shard directory, or rank 0's out-of-core stage)."""
-    import json
-
     outdir.mkdir()
     if out_of_core:
         meta = {"layout": "pair y-slab", "shape": [2, 2, 8, 16, 16], "dtype": "float64",
@@ -302,3 +306,133 @@ def test_check_sharded_refuses(over, world, error, says):
                  model.xspace_half_pair_sharded):
         with pytest.raises(error, match=says):
             call(mesh)
+
+
+# -- spans of the sharded half route, and the benchmark's readers of them --------
+#: the 32^3 PLT step (four arrays), over 2 and 4 ranks
+SPAN_WORLDS = (2, 4)
+
+
+@pytest.fixture(scope="module")
+def span_runs(tmp_path_factory):
+    """``torch_sharded_worker.spans`` at 32^3 PLT over each world size:
+    {world: [(span records, traced slab, untraced slab) of each rank]}."""
+    base = tmp_path_factory.mktemp("spans")
+    keys = _keys(32, PLT)
+    ctx = mp.get_context("spawn")
+    procs = []
+    for world in SPAN_WORLDS:
+        (base / f"w{world}").mkdir()
+        for rank in range(world):
+            p = ctx.Process(target=torch_sharded_worker.spans, daemon=True, args=(
+                rank, world, str(base / f"store{world}"), keys, str(base / f"w{world}")))
+            p.start()
+            procs.append(p)
+    try:
+        for p in procs:
+            p.join(JOIN_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    out = {}
+    for world in SPAN_WORLDS:
+        d = base / f"w{world}"
+        out[world] = [(json.loads((d / f"spans.r{r}.json").read_text()),
+                       np.load(d / f"traced.r{r}.npy"), np.load(d / f"plain.r{r}.npy"))
+                      for r in range(world)]
+    return out
+
+
+@pytest.mark.parametrize("world", SPAN_WORLDS)
+def test_exchange_span_counts_calls_and_bytes(span_runs, world):
+    """Under a profiler each rank keeps one ``shard.exchange`` record a
+    step: one call a block (narray 4 x component x sign), and the bytes it
+    sends to the other ranks, its ky planes' parts of their z-slabs."""
+    from zeldovich_tpu_torch.parallel.pencil_mmfft import split_sizes
+
+    n, blocks = 32, 4 * 2 * 2
+    rows, zl = split_sizes(n // 2, world), n // world
+    for rank, (recs, _, _) in enumerate(span_runs[world]):
+        (ex,) = [r for r in recs if r["name"] == "shard.exchange"]
+        assert ex["counts"] == {"calls": blocks,
+                                "bytes": blocks * rows[rank] * (world - 1) * zl * n * 8}
+
+
+@pytest.mark.parametrize("world", SPAN_WORLDS)
+def test_sharded_fields_open_the_plt_span(span_runs, world):
+    """The rank's PLT planes (``sharded_fields``) are one
+    ``static.plt_coefs`` span, as the one-device planes are."""
+    for recs, _, _ in span_runs[world]:
+        assert [r["parent"] for r in recs if r["name"] == "static.plt_coefs"] == [None]
+
+
+@pytest.mark.parametrize("world", SPAN_WORLDS)
+def test_spans_leave_the_slabs_unchanged(span_runs, world):
+    """Each rank's z-slab under the profiler is the one without it, bit
+    for bit."""
+    for _, traced, plain in span_runs[world]:
+        assert traced.shape == plain.shape and traced.tobytes() == plain.tobytes()
+
+
+def _reader(name):
+    import importlib.util
+
+    path = ROOT / "bench_torch" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"metric_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cell_config():
+    return json.loads((ROOT / "bench_torch" / "configs" / "abacus_base_plt4.json").read_text())
+
+
+def _run(requests, events=(), ranges=()):
+    """What a reader gets of a traced run (bench_torch/tracing.py::Run):
+    the four-card cell, its requests, trace events and ``shard.exchange``
+    ranges."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(cell={"chips": 4}, config=_cell_config(), requests=requests,
+                           events=list(events),
+                           ranges=lambda name: list(ranges) if name == "shard.exchange" else [])
+
+
+@pytest.mark.parametrize("name", ["exchange_ms", "exchange_roofline"])
+def test_exchange_readers_find_nothing_without_records(name):
+    """A run whose requests hold no ``shard.exchange`` record (the
+    parent's, or one without a profiler) leaves both metrics out."""
+    kernel = {"name": "ncclDevKernel_SendRecv", "cat": "kernel", "t0": 0.1, "t1": 0.2}
+    run = _run([{"t0": -2.0, "t1": -1.0}], [kernel], [{"t0": 0.0, "t1": 1.0}])
+    assert _reader(name).read(run) is None
+
+
+def test_exchange_roofline_reckons_the_cells_bytes():
+    """At the cell's shapes (1024^3, four arrays, float64, four ranks)
+    rank 0 moves 128 x 768 x 1024 x 8 bytes each way a call, 16 calls a
+    realization (~12.9 GB); the share is their time at 450 GB/s over the
+    NCCL kernels' time inside the spans' ranges, other kernels and NCCL
+    kernels outside the ranges left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zeldovich_tpu_torch.utils.timers import span
+
+    roof, ms = _reader("exchange_roofline"), _reader("exchange_ms")
+    assert roof.call_bytes(_cell_config(), 4) == 128 * 768 * 1024 * 8
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("shard.exchange", calls=16):
+            time.sleep(0.01)
+    t1 = time.perf_counter()
+    events = [{"name": "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)",
+               "cat": "kernel", "t0": 1.0, "t1": 1.04},
+              {"name": "c2r_cols_kernel", "cat": "kernel", "t0": 1.0, "t1": 1.03},
+              {"name": "ncclDevKernel_AllReduce_Sum_i32", "cat": "kernel", "t0": 2.0,
+               "t1": 3.0}]
+    run = _run([{"t0": t0, "t1": t1}], events, [{"t0": 0.99, "t1": 1.05}])
+    want = 100.0 * 16 * 128 * 768 * 1024 * 8 / 450e9 / 0.04
+    assert roof.read(run) == pytest.approx(want, rel=1e-9)
+    assert 10.0 <= ms.read(run) < 1e3 * (t1 - t0) + 1e-9

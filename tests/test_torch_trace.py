@@ -231,6 +231,7 @@ CELL_METRICS = {
                       "writer_wait_share.file", "write_MBps.file"],
     "abacus_small_plt.realizations": ["setup_power_ms.mem", "setup_rng_ms.mem",
                                       "setup_eig_ms.mem", "static_plt_ms.mem"],
+    "abacus_base_plt4.sharded_realizations": ["exchange_ms.mem", "static_plt_ms.mem"],
 }
 
 

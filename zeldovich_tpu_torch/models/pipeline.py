@@ -120,20 +120,23 @@ class Zeldovich:
 
     @property
     def plt_coefs(self):
-        """Cached (4, half, Z, X) PLT coefficient planes; None unless qPLT.
-
-        Computing them is the span ``static.plt_coefs``, the one span
-        around work on the card: while a profiler runs it synchronizes the
-        device at its close, so that its length is the fields' time; with
-        none running nothing waits."""
+        """Cached (4, half, Z, X) PLT coefficient planes; None unless qPLT."""
         if not self.param.qPLT:
             return None
         if self._plt_coefs is None:
-            with span("static.plt_coefs"):
-                self._plt_coefs = plt_coef_fields(self.cfg, self.tables, self.dtype)
-                if tracing() and self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+            self._plt_coefs = self._plt_coef_fields()
         return self._plt_coefs
+
+    def _plt_coef_fields(self, rows=None):
+        """``plt_coef_fields`` of the planes ``rows`` (all where None) in
+        the span ``static.plt_coefs``: while a profiler runs it synchronizes
+        the device at its close, so that its length is the planes' time;
+        with none running nothing waits."""
+        with span("static.plt_coefs"):
+            coefs = plt_coef_fields(self.cfg, self.tables, self.dtype, rows=rows)
+            if tracing() and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return coefs
 
     def kspace_half_pair(self):
         """The packed half spectrum (narray, 2, 2, half+1, Z, X): kernel B3
@@ -251,7 +254,8 @@ class Zeldovich:
     def sharded_fields(self, mesh):
         """(pk_eff, plt_coefs) of this rank's generated planes on the half
         route, cached ((None, None) where it has none); None on the full
-        grid."""
+        grid.  The PLT planes are the span ``static.plt_coefs``, as on one
+        device."""
         from ..parallel.pencil_mmfft import ky_planes
 
         if not self.half_route_sharded():
@@ -264,7 +268,7 @@ class Zeldovich:
             if rows[1] > rows[0]:
                 pk = pk_effective(self.cfg, self.tables, self.dtype, rows=rows)
                 if self.param.qPLT:
-                    coefs = plt_coef_fields(self.cfg, self.tables, self.dtype, rows=rows)
+                    coefs = self._plt_coef_fields(rows)
             self._rank_fields = (rows, pk, coefs)
         return self._rank_fields[1:]
 

@@ -33,6 +33,7 @@ import torch
 from ..ops.c2r import c2r_y
 from ..ops.mmfft import dft_y, dft_zx
 from ..ops.synth import halfspace_pack_zx
+from ..utils.timers import span, tracing
 
 
 def split_sizes(n: int, world: int) -> list[int]:
@@ -79,6 +80,13 @@ def exchange(x, out, split_axis: int, concat_axis: int, split, concat, mesh):
     rank and is sent from or received into in place; the other side goes
     through one block's buffer, so no more than one block is copied at a
     time.
+
+    The blocks are the span ``shard.exchange``, with the counts ``calls``
+    (the ``all_to_all_single`` calls) and ``bytes`` (what this rank sends
+    to the other ranks, its own part left out).  While a profiler runs the
+    device is synchronized before the span opens and at its close, so that
+    its length is the exchange's time, not that of the transforms queued
+    before it; with none running nothing waits.
     """
     lead = min(split_axis, concat_axis)
     blk_in, blk_out = x.shape[lead:], out.shape[lead:]
@@ -89,19 +97,27 @@ def exchange(x, out, split_axis: int, concat_axis: int, split, concat, mesh):
                       device=x.device)
     so, co = _offsets(split), _offsets(concat)
     io, oo = _offsets(n_in), _offsets(n_out)
-    for b in range(x.shape[:lead].numel()):
-        xb = x.flatten(0, lead - 1)[b]
-        ob = out.flatten(0, lead - 1)[b]
-        if packed:  # x's parts are strided: pack them, receive in place
-            for s in range(mesh.world):
-                part = xb.narrow(split_axis - lead, so[s], split[s])
-                buf[io[s]:io[s] + n_in[s]].view(part.shape).copy_(part)
-            mesh.all_to_all_single(ob.view(-1), buf, n_out, n_in)
-        else:  # send in place, receive into the buffer and unpack
-            mesh.all_to_all_single(buf, xb.view(-1), n_out, n_in)
-            for r in range(mesh.world):
-                part = ob.narrow(concat_axis - lead, co[r], concat[r])
-                part.copy_(buf[oo[r]:oo[r] + n_out[r]].view(part.shape))
+    blocks = x.shape[:lead].numel()
+    sent = blocks * (sum(n_in) - n_in[mesh.rank]) * x.element_size()
+    synced = tracing() and x.device.type == "cuda"
+    if synced:
+        torch.cuda.synchronize(x.device)
+    with span("shard.exchange", calls=blocks, bytes=sent):
+        for b in range(blocks):
+            xb = x.flatten(0, lead - 1)[b]
+            ob = out.flatten(0, lead - 1)[b]
+            if packed:  # x's parts are strided: pack them, receive in place
+                for s in range(mesh.world):
+                    part = xb.narrow(split_axis - lead, so[s], split[s])
+                    buf[io[s]:io[s] + n_in[s]].view(part.shape).copy_(part)
+                mesh.all_to_all_single(ob.view(-1), buf, n_out, n_in)
+            else:  # send in place, receive into the buffer and unpack
+                mesh.all_to_all_single(buf, xb.view(-1), n_out, n_in)
+                for r in range(mesh.world):
+                    part = ob.narrow(concat_axis - lead, co[r], concat[r])
+                    part.copy_(buf[oo[r]:oo[r] + n_out[r]].view(part.shape))
+        if synced:
+            torch.cuda.synchronize(x.device)
     return out
 
 
