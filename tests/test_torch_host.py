@@ -12,6 +12,7 @@ code.
 
 import ast
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +28,7 @@ from zeldovich_tpu.utils import params as jparams
 from zeldovich_tpu.utils import power as jpower
 from zeldovich_tpu.utils.streamio import stream_xspace as jstream_xspace
 from zeldovich_tpu_torch import native
+from zeldovich_tpu_torch.models.pipeline import Zeldovich
 from zeldovich_tpu_torch.ops import pcg, v1
 from zeldovich_tpu_torch.utils import checkpoint, output, params, power
 from zeldovich_tpu_torch.utils.streamio import stream_xspace
@@ -130,6 +132,55 @@ def test_power_spectrum_and_tables_bit_equal(tmp_path, variant):
     for a, b in zip(jpower.mode_amplitude_tables(jpk, j),
                     power.mode_amplitude_tables(tpk, t)):
         np.testing.assert_array_equal(a, b)
+
+
+def _small_box(**over) -> dict:
+    """The small-box cell's .par keys (bench_torch/configs/abacus_small_plt.json,
+    512^3 in 148.1 Mpc/h, wmap1new.pow), its files in the repo's assets."""
+    par = json.loads((REPO / "bench_torch/configs/abacus_small_plt.json").read_text())["par"]
+    par.update(ZD_Pk_filename=str(ASSETS / "wmap1new.pow"),
+               ZD_PLT_filename=str(ASSETS / "eigmodes128"))
+    return par | over
+
+
+#: (the .par keys, f_NL): the small box at its own 512^3, where most n2 lie
+#: past the spline's kmax, and an f_NL box at a small ppd
+CELL_SHAPES = {
+    "small_box_512": _small_box(),
+    "fnl_64": dict(VARIANTS["fnl"], NP=64**3),
+}
+
+
+@pytest.mark.parametrize("case", CELL_SHAPES)
+def test_pipeline_tables_bit_equal_at_the_cells_shapes(tmp_path, case):
+    """The model's P(k) table (one spline pass), and the M table built from
+    it, bit for bit the JAX package's ``mode_amplitude_tables``; the model
+    carries M only under f_NL."""
+    j, t = _both(_par(tmp_path, **CELL_SHAPES[case]))
+    want_pk, want_M = jpower.mode_amplitude_tables(jpower.PowerSpectrum(j), j)
+    m = Zeldovich(t, device="cpu")
+    pk = m.tables.pk_n2.numpy()
+    np.testing.assert_array_equal(pk, want_pk)
+    np.testing.assert_array_equal(power.M_table(m.Pk, t, pk), want_M)
+    if t.f_NL != 0:
+        np.testing.assert_array_equal(m.tables.M_n2.numpy(), want_M)
+    else:
+        assert m.tables.M_n2 is None
+
+
+@pytest.mark.parametrize("case", ["plain", "fnl", "small_box_512"])
+def test_sigma_lines_equal_the_jax_text(tmp_path, capsys, case):
+    """PowerSpectrum's stderr ("Input sigma", "Final sigma", the file and
+    extrapolation lines) is the JAX package's to the character."""
+    over = CELL_SHAPES["small_box_512"] if case == "small_box_512" else VARIANTS[case]
+    j, t = _both(_par(tmp_path, **over))
+    capsys.readouterr()
+    jpower.PowerSpectrum(j)
+    want = capsys.readouterr().err
+    tpk = power.PowerSpectrum(t)
+    assert capsys.readouterr().err == want
+    assert "Input sigma(8.000000) = " in want and "Final sigma(8.000000) = " in want
+    assert tpk.sigma_integrals == 2
 
 
 @pytest.mark.parametrize("ppd", [16, 64])

@@ -211,6 +211,21 @@ def test_plt_model_records_setup_spans(tmp_path, name):
     assert recs[0]["parent"] is None
 
 
+@pytest.mark.parametrize("ppd, over", [(16, {}), (64, {}),
+                                      (16, dict(ZD_f_NL=30.0, ZD_n_s=0.96, Omega_M=0.3))],
+                         ids=["16", "64", "fnl16"])
+def test_setup_power_counts_one_pass(tmp_path, ppd, over):
+    """``setup.power`` counts the k values through the spline (one pass
+    over the n2 table, 3 (ppd/2)^2 past n2 = 0) and the Romberg sigma
+    integrals (Pk_sigma: the input sigma once, the final sigma once)."""
+    par = _write_par(tmp_path / "a.par", tmp_path / "a", NP=ppd**3, **over)
+    with _cpu_profile():
+        t0 = time.perf_counter()
+        Zeldovich(Parameters.from_file(par), device="cpu")
+    (rec,) = [r for r in timers.records(t0) if r["name"] == "setup.power"]
+    assert rec["counts"] == {"spline_points": 3 * (ppd // 2) ** 2, "sigma_integrals": 2}
+
+
 def test_profile_holds_writer_thread_ranges(tmp_path):
     """--profile traces every thread: its trace of an out-of-core run
     holds output.write ranges on a thread other than the phase's."""
