@@ -224,6 +224,10 @@ import tempfile
 import time
 from pathlib import Path
 
+from bench_torch.kernelwork import (
+    DRAW_F64_OPS, DRAW_OPS, F32_OPS, F64_OPS, HBM_BPS, bound_s, fft_ops,
+)
+
 ROOT = Path(__file__).resolve().parent
 EXAMPLE = ROOT / "example.par"
 ASSETS = ROOT / "zeldovich_tpu" / "assets"
@@ -240,20 +244,12 @@ F32_VS_F64_TOL = 3e-5
 #: and the particles, all relative to the largest value
 F64_TOL = 1e-12
 
-#: NVIDIA H100 SXM data sheet: device memory rate, float32 and float64
-#: vector peaks (no tensor cores); a kernel's bound is the larger of its
-#: bytes and its operations over these
-HBM_BPS, F32_OPS, F64_OPS = 3.35e12, 67e12, 33.5e12
-#: the FP64 tensor-core peak of the same data sheet: the bound of the
-#: float64 matrix products (cuBLAS runs DGEMM on the tensor cores)
+#: the FP64 tensor-core peak of the H100 SXM data sheet: the bound of the
+#: float64 matrix products (cuBLAS runs DGEMM on the tensor cores); every
+#: other bound is the benchmark's work model (``bench_torch/kernelwork.py``:
+#: HBM_BPS, the float32/float64 vector peaks, DRAW_OPS and DRAW_F64_OPS,
+#: which phase 1 checks against B5's SASS)
 F64_TC_OPS = 67e12
-#: 32-bit operations a mode of the draw kernels (B1, B3-B5): the pcg64
-#: jump (one 128-bit multiply-add), two XSL-RR draws and Box-Muller
-DRAW_OPS = 100
-#: float64 operations a mode of the float64 draw kernels on top of the
-#: integer chain (the library's log, sqrt and sincos): counted from B5's
-#: SASS in phase 1 (_f64_draw_ops), a multiply-add as two
-DRAW_F64_OPS = None
 TAG = {"float32": "f32", "float64": "f64"}
 
 #: zx (B6/B7) and y (B8) at the shapes the paths launch: the 512^3 full
@@ -386,23 +382,15 @@ def nbytes(*ts) -> int:
 
 
 def bound(moved: int, ops: float, dt: str = "float32", draws: int = 0) -> dict:
-    """The least time the card could take: bytes moved (each input read
-    once, each output written once) over the memory rate, or operations
-    over the peak, whichever is larger.  `ops` are operations of the
-    element type (float32 or float64 peak); `draws` modes of the draw
-    kernels add DRAW_OPS 32-bit operations each and, in float64,
-    DRAW_F64_OPS float64 ones."""
+    """The least time the card could take (``kernelwork.bound_s``): bytes
+    moved (each input read once, each output written once) over the memory
+    rate, or operations over the peak, whichever is larger.  `ops` are
+    operations of the element type (float32 or float64 peak); `draws`
+    modes of the draw kernels add DRAW_OPS 32-bit operations each and, in
+    float64, DRAW_F64_OPS float64 ones."""
     tb = 1e3 * moved / HBM_BPS
-    to = 1e3 * (ops / (F32_OPS if dt == "float32" else F64_OPS)
-                + draws * DRAW_OPS / F32_OPS
-                + (draws * DRAW_F64_OPS / F64_OPS if dt == "float64" else 0.0))
-    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
-
-
-def fft_ops(elems: int, n: int) -> float:
-    """5 N log2 N operations a complex DFT of length n, for `elems`
-    complex elements transformed along that axis."""
-    return 5.0 * elems * math.log2(n)
+    ms = 1e3 * bound_s(moved, ops, 4 if dt == "float32" else 8, draws)
+    return {"bound_ms": ms, "bound_by": "bytes" if tb >= ms else "operations"}
 
 
 def counted(name, fn):
@@ -468,8 +456,11 @@ def phase_card():
     check(len(plt) == 3, f"ptxas reported {len(plt)} PLT coefficient kernels, want 3")
     for ln in plt:
         check("0 bytes spill stores" in ln, f"spills in a PLT coefficient kernel: {ln}")
-    global DRAW_F64_OPS
-    DRAW_F64_OPS = _f64_draw_ops()
+    # the work model's fixed float64 draw count, checked on this card
+    ops = _f64_draw_ops()
+    say(f"  float64 draw chain: {ops} float64 operations a mode in B5's SASS, "
+        f"kernelwork.DRAW_F64_OPS {DRAW_F64_OPS}: "
+        + ("they agree" if ops == DRAW_F64_OPS else "they DIFFER"))
 
 
 def _sass(binary) -> str:
@@ -507,9 +498,7 @@ def _f64_draw_ops() -> int:
     of B5's float64 kernel (one mode a thread, no loop)."""
     from zeldovich_tpu_torch import kernels
 
-    ops = _sass_f64_ops(_sass(kernels.LIB), "boxmuller_at_kernelId")
-    say(f"  float64 draw chain: {ops} float64 operations a mode (B5's SASS)")
-    return ops
+    return _sass_f64_ops(_sass(kernels.LIB), "boxmuller_at_kernelId")
 
 
 #: the PLT generator's table sizes timed on the card (phase 1b): 128 the
@@ -1300,12 +1289,12 @@ def _pass2_at(m, stage):
     import numpy as np
     import torch
 
-    from zeldovich_tpu_torch.models.outofcore import (
-        AsyncSlabWriter, _flush_chunk, _zsel,
-    )
+    from zeldovich_tpu_torch.models.outofcore import _zsel
     from zeldovich_tpu_torch.models.pipeline import OutputWriter, setup_output_dir
     from zeldovich_tpu_torch.ops.fft import y_dft
-    from zeldovich_tpu_torch.utils.streamio import slabs_to_device, stream_to_host
+    from zeldovich_tpu_torch.utils.streamio import (
+        slabs_to_device, stream_to_host, write_zslabs,
+    )
 
     ppd, nz = m.param.ppd, m.slab
     keys = [_zsel(z0, nz) for z0 in range(0, ppd, nz)]
@@ -1327,12 +1316,9 @@ def _pass2_at(m, stage):
     y = _time(lambda: y_dft(dev, +1, out=dev), reps=1)
     d2h = _time(lambda: pinned.copy_(dev, non_blocking=True))
     setup_output_dir(m.param)
-    aw = AsyncSlabWriter(OutputWriter(m.param))
+    writer = OutputWriter(m.param)
     t0 = time.perf_counter()
-    try:
-        _flush_chunk(aw, 0, pinned.numpy(), pair=True)
-    finally:
-        aw.close()
+    write_zslabs([(0, pinned)], writer)  # a host tensor: straight to the writer
     write = time.perf_counter() - t0
     gb, ic_gb = pinned.nbytes / 1e9, nz * ppd * ppd * 32 / 1e9
     say(f"  {ppd}^3 pass 2 without the writer: {wall:.3f} s for {len(keys)} "

@@ -344,22 +344,17 @@ def _steps(args, mesh, param, dtype, gib, timers, t_total):
         return 0
 
     from .utils.checkpoint import (
-        kspace_layout, load_kspace_pair, remove_kspace, save_kspace,
+        CheckpointMismatch, check_kspace, load_kspace_pair, remove_kspace, save_kspace,
     )
 
     if args.part == 2:
         with timers.phase("Loading k-space checkpoint"):
             # the port's pair layout, or the JAX CLI's complex grid of the
             # same precision (split into the pair layout while it loads)
-            grid = (param.ppd,) * 3
-            takes = {(param.narray, 2, *grid): args.dtype,
-                     (param.narray, *grid): f"complex{16 * dtype.itemsize}"}
-            shape, held, _ = kspace_layout(ckpt)
-            if takes.get(shape) != held.name:
-                print(f"checkpoint holds {held.name} {shape} but this run expects "
-                      + " or ".join(f"{d} {s}" for s, d in takes.items())
-                      + " (part 1/2 must use the same .par and --dtype)",
-                      file=sys.stderr)
+            try:
+                check_kspace(ckpt, param.narray, param.ppd, args.dtype)
+            except CheckpointMismatch as e:
+                print(e, file=sys.stderr)
                 return 1
             kgrid = torch.from_numpy(load_kspace_pair(ckpt)).to(args.device)
             sync()
@@ -469,15 +464,9 @@ def _load_rank_rows(args, model, mesh, ckpt):
     held = "float64" if model.dtype == torch.float64 else "float32"
     if args.distributed:
         return checkpoint.load_sharded(ckpt, mesh, grid, held, mesh.device)
-    takes = {grid: held, (p.narray, *grid[2:]): f"complex{2 * int(held[5:])}"}
     err = rows = None
     try:
-        shape, dtype, _ = checkpoint.kspace_layout(ckpt)
-        if takes.get(shape) != dtype.name:
-            raise checkpoint.CheckpointMismatch(
-                f"checkpoint holds {dtype.name} {shape} but this run expects "
-                + " or ".join(f"{d} {s}" for s, d in takes.items())
-                + " (part 1/2 must use the same .par and --dtype)")
+        checkpoint.check_kspace(ckpt, p.narray, p.ppd, held)
         rows = checkpoint.load_kspace_pair(ckpt, rows=slab(p.ppd, mesh))
     except (OSError, ValueError) as e:
         err = e if isinstance(e, checkpoint.CheckpointMismatch) else \

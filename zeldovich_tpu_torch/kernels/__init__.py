@@ -16,9 +16,9 @@ launch wrapper picks the entry by the dtype of the tensor it writes.
 Each launch wrapper adds one to its entry of ``launches`` (one counter a
 kernel, whatever the element type); a run reads the counts to show that
 its main path went through the kernels.  The PLT coefficient kernel
-counts in ``plt_launches`` instead: the benchmark's work model
-(bench_torch/kernelwork.py) reckons the work of every key of
-``launches`` and has no entry for it yet.
+counts in ``plt_launches`` instead: the benchmark (bench_torch/run.py)
+reads it by that name beside ``launches``, and its work model
+(bench_torch/kernelwork.py) reckons it as ``plt_coefs``.
 """
 
 from __future__ import annotations

@@ -34,14 +34,17 @@ stage that matches the run (``check_stage``); a stage without one (the
 JAX package writes none) must have the run's size and the zero y-Nyquist
 planes of every pair stage, so the JAX CLI's complex ``(narray, Y, Z, X)``
 stage, which has the byte count of a float64 pair stage, is refused.
-Each streaming loop runs one slab ahead (utils/streamio.py).  Pass 1 is
-the span ``ooc.pass1``, each write into a stage ``stage.sink``
+Each streaming loop runs one slab ahead (utils/streamio.py), and pass 2
+reaches the ic_* writer through ``streamio.write_zslabs``.  Pass 1 is the
+span ``ooc.pass1``, each write into a stage ``stage.sink``
 (``utils/timers.py``).
 
-``DistributedOutOfCore`` is the same pipeline over a mesh of ranks
-(``--sharded``/``--distributed --out-of-core``): each rank stages its
-y-slab of the grid, pass 1 runs on it alone and pass 2 exchanges each
-z-block (``parallel/outofcore.py``); every rank writes its own planes.
+The passes are written once, over the grid rows [_row0, _row1) that the
+stage holds and its z-slabs on the device (``_zslabs``).
+``DistributedOutOfCore`` (``--sharded``/``--distributed --out-of-core``)
+changes what a mesh changes: its rows (a y-slab), ``_zslabs`` (one
+exchange a z-block, ``parallel/outofcore.py``) and the phi pass's way
+back, the reflected phi rows, its stage files and its output.
 """
 
 from __future__ import annotations
@@ -55,10 +58,12 @@ import torch
 
 from ..ops.mmfft import dft_y, dft_zx
 from ..ops.modes_real import _reflect_zx, synthesize_pair
+from ..parallel.multihost import reduce_stats
+from ..parallel.outofcore import rows_from_zslab, zblocks, zslab_from_rows
+from ..parallel.pencil_mmfft import slab as rank_rows
+from ..parallel.synthesis import reflected_exchange
 from ..utils.output import OutputWriter, setup_output_dir
-from ..utils.streamio import (
-    AsyncSlabWriter, _flush_chunk, slabs_to_device, stream_to_host,
-)
+from ..utils.streamio import slabs_to_device, stream_to_host, write_zslabs
 from ..utils.timers import span
 from .pipeline import Zeldovich, phi_nl
 
@@ -98,19 +103,25 @@ class OutOfCoreZeldovich(Zeldovich):
         if backing not in ("ram", "disk"):
             raise ValueError(f"backing must be 'ram' or 'disk', got {backing!r}")
         self.backing = backing
-        itemsize = 16 if dtype == torch.float64 else 8
-        row = param.ppd * param.ppd * param.narray * itemsize
-        self.slab = max(1, min(param.ppd, slab_bytes // row))
-        while param.ppd % self.slab:
-            self.slab -= 1
         self._fnp = np.float64 if dtype == torch.float64 else np.float32
+        #: the grid rows the stage holds (a rank's y-slab on a mesh)
+        self._row0, self._row1 = 0, param.ppd
+        self._cut_slabs(slab_bytes)
+
+    def _cut_slabs(self, slab_bytes):
+        """slab: the largest divisor of the stage's rows within slab_bytes."""
+        p, rows = self.param, self._row1 - self._row0
+        row = p.ppd * p.ppd * p.narray * 2 * np.dtype(self._fnp).itemsize
+        self.slab = max(1, min(rows, slab_bytes // row))
+        while rows % self.slab:
+            self.slab -= 1
 
     # -- staging buffer -------------------------------------------------
     def stage_layout(self, narray=None):
         """(shape, numpy dtype) of the host staging buffer."""
         p = self.param
         narray = p.narray if narray is None else narray
-        return (narray, 2, p.ppd, p.ppd, p.ppd), self._fnp
+        return (narray, 2, self._row1 - self._row0, p.ppd, p.ppd), self._fnp
 
     def _stage_meta(self) -> dict:
         shape, dtype = self.stage_layout()
@@ -180,14 +191,26 @@ class OutOfCoreZeldovich(Zeldovich):
             return np.memmap(path, dtype=dtype, mode="w+", shape=shape)
         return np.empty(shape, dtype=dtype)
 
-    #: the first grid row the stage holds (a rank's y-slab starts later)
-    _row0 = 0
-
     def _y_sink(self, stage):
         return _stage_sink(stage, lambda y0: _ysel(y0 - self._row0, self.slab))
 
     def _slab_starts(self):
-        return range(0, self.param.ppd, self.slab)
+        """The stage's y-slabs (pass 1) by their first grid row."""
+        return range(self._row0, self._row1, self.slab)
+
+    def _zslabs(self, stage, fn):
+        """(z0, fn(z-slab [z0, z0+slab) on the device)) for each z-slab of
+        the stage, the slab after next already on its way."""
+        keys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
+        for sel, z in slabs_to_device(keys, stage.__getitem__, self.device):
+            yield sel[3].start, fn(z)
+
+    def _from_zslab(self, z):
+        """The phi pass's way back from a z-slab to what ``_z_sink`` takes."""
+        return z
+
+    def _z_sink(self, stage):
+        return _stage_sink(stage, lambda z0: _zsel(z0, self.slab))
 
     def _pass1_slab(self, y0, gen_phi=False, phi_pair=None):
         """Synthesize the y-slab [y0, y0+slab) and transform z and x."""
@@ -198,7 +221,7 @@ class OutOfCoreZeldovich(Zeldovich):
 
     # -- phi round trip -------------------------------------------------
     def _phi_stage(self):
-        """phi(k), the full grid (1, 2, Y, Z, X), in a host stage."""
+        """phi(k) of the stage's rows, (1, 2, rows, Z, X), in a host stage."""
         p = self.param
         stage = self._alloc_stage(1, "zeldovich.phi")
         stream_to_host(((y0, self._pass1_slab(y0, gen_phi=True))
@@ -207,12 +230,10 @@ class OutOfCoreZeldovich(Zeldovich):
 
         def fwd_y_phi_nl(z):
             dft_y(z, +1, out=z)
-            return dft_y(phi_nl(z, p.f_NL, inv_n3), -1, out=z)
+            return self._from_zslab(dft_y(phi_nl(z, p.f_NL, inv_n3), -1, out=z))
 
-        zkeys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
-        stream_to_host(((sel, fwd_y_phi_nl(z)) for sel, z in slabs_to_device(
-            zkeys, stage.__getitem__, self.device)), _stage_sink(stage))
-        ykeys = [_ysel(y0, self.slab) for y0 in self._slab_starts()]
+        stream_to_host(self._zslabs(stage, fwd_y_phi_nl), self._z_sink(stage))
+        ykeys = [_ysel(y0 - self._row0, self.slab) for y0 in self._slab_starts()]
         stream_to_host(((sel, dft_zx(y, -1, out=y)) for sel, y in slabs_to_device(
             ykeys, stage.__getitem__, self.device)), _stage_sink(stage))
         return stage
@@ -238,12 +259,6 @@ class OutOfCoreZeldovich(Zeldovich):
             refl = _reflect_zx(refl)
             yield y0, ((same[0], same[1]), (refl[0], refl[1]))
 
-    def _drop_phi_stage(self, phi_stage):
-        """Remove the consumed phi stage's disk file, if any: it must not
-        outlive the pass (it is 1/narray of the main stage)."""
-        if phi_stage is not None and self.backing == "disk":
-            self._stage_file("zeldovich.phi").unlink(missing_ok=True)
-
     # -- main passes ----------------------------------------------------
     def stage_pass1(self, stage=None):
         """Pass 1: synthesis + z/x inverse DFTs of every y-slab, staged to
@@ -258,15 +273,16 @@ class OutOfCoreZeldovich(Zeldovich):
                     else self._phi_pairs(phi_stage))
             stream_to_host(((y0, self._pass1_slab(y0, phi_pair=phi)) for y0, phi in phis),
                            self._y_sink(stage))
-            self._drop_phi_stage(phi_stage)
+            if phi_stage is not None and self.backing == "disk":
+                # the consumed phi stage (1/narray of the main stage) must
+                # not outlive the pass
+                self._stage_file("zeldovich.phi").unlink(missing_ok=True)
         return stage
 
     def pass2(self, stage):
         """(z0, x-space z-slab on the device) for each z-slab of the stage:
-        the y DFT(+1) in place, the slab after next already on its way."""
-        keys = [_zsel(z0, self.slab) for z0 in self._slab_starts()]
-        return ((sel[3].start, dft_y(z, +1, out=z)) for sel, z in slabs_to_device(
-            keys, stage.__getitem__, self.device))
+        the y DFT(+1) in place."""
+        return self._zslabs(stage, lambda z: dft_y(z, +1, out=z))
 
     def _setup_dir(self):
         setup_output_dir(self.param)
@@ -285,13 +301,7 @@ class OutOfCoreZeldovich(Zeldovich):
         own_stage = stage is None
         if own_stage:
             stage = self.stage_pass1()
-        writer = self._writer()
-        aw = AsyncSlabWriter(writer)
-        try:
-            stream_to_host(self.pass2(stage),
-                           lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
-        finally:
-            aw.close()
+        writer = write_zslabs(self.pass2(stage), self._writer())
         if own_stage and self.backing == "disk":
             # the run completed: reclaim the stage (the reference's
             # quickdelete of consumed block files); a crash leaves it on
@@ -333,20 +343,10 @@ class DistributedOutOfCore(OutOfCoreZeldovich):
                  backing: str = "ram"):
         super().__init__(param, dtype=dtype, slab_bytes=slab_bytes, backing=backing,
                          device=mesh.device)
-        from ..parallel.pencil_mmfft import slab
-
         self.check_sharded(mesh)  # ZD_Version=1, ranks that do not divide ppd
         self.mesh = mesh
-        self._row0, self._row1 = slab(param.ppd, mesh)
-        yl = self._row1 - self._row0
-        self.slab = min(self.slab, yl)
-        while yl % self.slab:
-            self.slab -= 1
-
-    def stage_layout(self, narray=None):
-        p = self.param
-        narray = p.narray if narray is None else narray
-        return (narray, 2, self._row1 - self._row0, p.ppd, p.ppd), self._fnp
+        self._row0, self._row1 = rank_rows(param.ppd, mesh)
+        self._cut_slabs(slab_bytes)
 
     def _stage_meta(self) -> dict:
         return {**super()._stage_meta(), "layout": "pair y-slab",
@@ -401,60 +401,31 @@ class DistributedOutOfCore(OutOfCoreZeldovich):
     def _stage_file(self, name) -> Path:
         return self.param.output_path / f"{name}.p{self.mesh.rank}.mm"
 
-    def _slab_starts(self):
-        """The rank's y-slabs (pass 1) by their first grid row."""
-        return range(self._row0, self._row1, self.slab)
-
-    def _zsteps(self):
-        return range((self._row1 - self._row0) // self.slab)
-
     def _zslabs(self, stage, fn):
         """(z0, fn(this rank's z-slab)) for each lockstep z-block: its rows
         of every rank's block to the device, one exchange."""
-        from ..parallel.outofcore import zblocks, zslab_from_rows
-
         w = self.mesh.world
-        for j, rows in slabs_to_device(
-                self._zsteps(), lambda j: zblocks(stage, j, self.slab, w), self.device):
+        for j, rows in slabs_to_device(range((self._row1 - self._row0) // self.slab),
+                                       lambda j: zblocks(stage, j, self.slab, w),
+                                       self.device):
             yield self._row0 + j * self.slab, fn(zslab_from_rows(rows, self.mesh))
 
-    def pass2(self, stage):
-        return self._zslabs(stage, lambda z: dft_y(z, +1, out=z))
-
     # -- phi round trip -------------------------------------------------
-    def _phi_stage(self):
-        """This rank's rows of phi(k), (1, 2, Yl, Z, X), in a host stage."""
-        from ..parallel.outofcore import rows_from_zslab, zblocks
+    def _from_zslab(self, z):
+        """The way back: this rank's rows of every rank's z-block."""
+        return rows_from_zslab(z, self.mesh)
 
-        p = self.param
-        stage = self._alloc_stage(1, "zeldovich.phi")
-        stream_to_host(((y0, self._pass1_slab(y0, gen_phi=True))
-                        for y0 in self._slab_starts()), self._y_sink(stage))
-        inv_n3 = 1.0 / p.ppd**3
-
-        def fwd_y_phi_nl(z):
-            dft_y(z, +1, out=z)
-            return rows_from_zslab(dft_y(phi_nl(z, p.f_NL, inv_n3), -1, out=z),
-                                   self.mesh)
-
-        w = self.mesh.world
-
+    def _z_sink(self, stage):
         def sink(z0, h):
-            zblocks(stage, (z0 - self._row0) // self.slab, self.slab, w)[...] = h
-
-        stream_to_host(self._zslabs(stage, fwd_y_phi_nl), sink)
-        ykeys = [_ysel(y0 - self._row0, self.slab) for y0 in self._slab_starts()]
-        stream_to_host(((sel, dft_zx(y, -1, out=y)) for sel, y in slabs_to_device(
-            ykeys, stage.__getitem__, self.device)), _stage_sink(stage))
-        return stage
+            j = (z0 - self._row0) // self.slab
+            zblocks(stage, j, self.slab, self.mesh.world)[...] = h
+        return sink
 
     def _phi_pairs(self, phi_stage):
         """(y0, ((same_re, same_im), (refl_re, refl_im))) for each of the
         rank's y-slabs: phi(k) at (y, z, x) from its own stage, and at
         ((-y, -z, -x) mod ppd) from the ranks that hold the rows (n - y)
         mod n, by one uneven all-to-all a slab."""
-        from ..parallel.synthesis import reflected_exchange
-
         p, ny = self.param, self.slab
         yl = self._row1 - self._row0
 
@@ -480,8 +451,6 @@ class DistributedOutOfCore(OutOfCoreZeldovich):
         return OutputWriter(self.param, parallel=self.mesh.world > 1)
 
     def _finish(self, writer):
-        from ..parallel.multihost import reduce_stats
-
         self.mesh.barrier()
         reduce_stats(writer, self.mesh)
         if self.mesh.rank == 0:

@@ -7,10 +7,12 @@ process writes the slabs it owns; the port's sharded steps
 ``(narray, 2, Y, Zl, X)``, planes [r Zl, (r+1) Zl), so nothing is
 resharded.  What is multi-process here:
 
-1. parallel particle output: every rank pwrites its own planes into the
-   shared ic_* files at computed offsets (``OutputWriter(parallel=True)``,
-   utils/output.py), the byte image of the reference's serial append
-   loop (src/output.cpp:208-212); no rank receives another's slab;
+1. parallel particle output: every rank streams its own z-slab through
+   its own writer (``stream_xspace(x, writer, z0=rank Zl)``), which
+   pwrites its planes into the shared ic_* files at computed offsets
+   (``OutputWriter(parallel=True)``), the byte image of the reference's
+   serial append loop (src/output.cpp:208-212); no rank receives
+   another's slab;
 2. a reduction of the QA statistics over the ranks (density variance,
    signed componentwise max displacement, bytes written).
 
@@ -24,13 +26,6 @@ import torch
 
 from ..utils.output import OutputWriter
 from ..utils.streamio import stream_xspace
-
-
-def write_local_slabs(x, writer, mesh):
-    """Write this rank's z-slab x ``(narray, 2, Y, Zl, X)``, planes
-    [rank Zl, (rank+1) Zl), through its own writer, one chunk ahead as
-    ``stream_xspace`` does; closes the writer."""
-    return stream_xspace(x, writer, z0=mesh.rank * x.shape[3])
 
 
 def reduce_stats(writer, mesh):
@@ -72,7 +67,7 @@ def run_multihost(model, mesh, timers, kgrid=None):
     x = sharded_step(model, mesh, timers, kgrid)
     with timers.phase("Output"):
         writer = OutputWriter(model.param, parallel=mesh.world > 1)
-        write_local_slabs(x, writer, mesh)
+        stream_xspace(x, writer, z0=mesh.rank * x.shape[3])  # its own planes
         del x
         mesh.barrier()
         reduce_stats(writer, mesh)

@@ -48,8 +48,8 @@ import numpy as np
 from .streamio import gathered_chunks, send_to_rank0, stream_to_host
 
 __all__ = ["save_kspace", "load_kspace", "load_kspace_pair", "kspace_layout",
-           "remove_kspace", "save_kspace_gathered", "save_sharded", "load_sharded",
-           "CheckpointMismatch"]
+           "check_kspace", "remove_kspace", "save_kspace_gathered", "save_sharded",
+           "load_sharded", "CheckpointMismatch"]
 
 
 def _chunk_y(shape, itemsize, target_bytes):
@@ -96,6 +96,22 @@ def kspace_layout(path) -> tuple[tuple, np.dtype, int]:
     meta.json."""
     meta = json.loads((Path(path) / "meta.json").read_text())
     return tuple(meta["shape"]), np.dtype(meta["dtype"]), meta["chunk"]
+
+
+def check_kspace(path, narray: int, ppd: int, dtype_name: str):
+    """Raise CheckpointMismatch unless the checkpoint at ``path`` holds a
+    grid this run takes: the pair layout (narray, 2, Y, Z, X) of
+    ``dtype_name``, or the JAX CLI's complex (narray, Y, Z, X) grid of that
+    precision."""
+    grid = (ppd,) * 3
+    takes = {(narray, 2, *grid): dtype_name,
+             (narray, *grid): f"complex{16 * np.dtype(dtype_name).itemsize}"}
+    shape, held, _ = kspace_layout(path)
+    if takes.get(shape) != held.name:
+        raise CheckpointMismatch(
+            f"checkpoint holds {held.name} {shape} but this run expects "
+            + " or ".join(f"{d} {s}" for s, d in takes.items())
+            + " (part 1/2 must use the same .par and --dtype)")
 
 
 def load_kspace_pair(path, rows=None) -> np.ndarray:

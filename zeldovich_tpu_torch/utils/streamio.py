@@ -12,17 +12,15 @@ layout (narray, 2, Y, Z, X), and of the out-of-core streaming loops
   staging buffer) to the device.  On CUDA each view is gathered into one
   of two pinned buffers and copied non-blocking, so the host gather of
   slab i+1 overlaps the device's work on slab i;
-* ``stream_xspace(x, writer)``: an x-space grid in z-chunks of ~256 MB
-  through the background ``AsyncSlabWriter`` and ``OutputWriter``, copies
-  of the JAX package's (``AsyncSlabWriter``, ``_chunk_planes`` and
-  ``_flush_chunk`` from ``zeldovich_tpu/utils/streamio.py``), so the ic_*
-  bytes are produced by the same code from the same values.
-
-* ``stream_xspace_sharded(x, writer, mesh)``: the z-slabs of a sharded
-  step, every rank's through rank 0's writer in z order (rank order); with
-  ``--distributed`` each rank streams its own z-slab through its own
-  writer instead (``stream_xspace(x, writer, z0)``,
-  ``parallel/multihost.py::write_local_slabs``).
+* ``write_zslabs(items, writer)``: the one loop from device z-chunks to
+  the ic_* files: each ``(z0, z-chunk)`` to the host (``stream_to_host``),
+  its complex planes to the background ``AsyncSlabWriter`` and
+  ``OutputWriter``, copies of the JAX package's (``AsyncSlabWriter`` and
+  ``_flush_chunk``, pair layout only), so the ic_* bytes are produced by
+  the same code from the same values.  Every run writes through it:
+  ``stream_xspace`` (a grid or a rank's z-slab in z-chunks of ~256 MB),
+  ``stream_xspace_sharded`` (every rank's z-slab through rank 0's writer
+  in z order) and the out-of-core pass 2 (``models/outofcore.py``).
 
 On the CPU both directions are plain host copies.
 
@@ -81,7 +79,7 @@ class AsyncSlabWriter:
         with span("output.submit_wait"):
             self._q.put((z, slab))
 
-    def close(self, close_writer: bool = True):
+    def close(self):
         with span("output.submit_wait"):
             self._q.put(None)
             self._t.join()
@@ -91,29 +89,13 @@ class AsyncSlabWriter:
         finally:
             # close file handles even on a captured worker error (ENOSPC
             # mid-run must not leak the density fp / parallel ic_* fds)
-            if close_writer:
-                self.writer.close()
+            self.writer.close()
 
 
-def _chunk_planes(shape, itemsize, ppd, pair, target_bytes):
-    """z-planes per fetch chunk: the largest divisor of ppd within ~target.
-
-    A divisor keeps every chunk the same shape (and the chunks the JAX
-    package's).
-    """
-    narray = shape[0]
-    per_plane = narray * (2 if pair else 1) * ppd * ppd * itemsize
-    want = max(1, min(ppd, int(target_bytes // per_plane) or 1))
-    while ppd % want:
-        want -= 1
-    return want
-
-
-def _flush_chunk(aw: AsyncSlabWriter, z0: int, c, pair: bool):
+def _flush_chunk(aw: AsyncSlabWriter, z0: int, c):
     h = np.asarray(c)
-    if pair:
-        with span("output.combine"):
-            h = h[:, 0] + 1j * h[:, 1]
+    with span("output.combine"):
+        h = h[:, 0] + 1j * h[:, 1]
     for dz in range(h.shape[2]):
         aw.submit(z0 + dz, h[:, :, dz, :])
 
@@ -207,12 +189,26 @@ def slabs_to_device(keys, view, device):
 
 def _zslab_chunk(x) -> int:
     """z planes a chunk of the z-slab x (narray, 2, Y, Zl, X): the largest
-    divisor of Zl within ~256 MB."""
-    zl = x.shape[3]
-    chunk = _chunk_planes(x.shape, x.element_size(), x.shape[2], True, 256 << 20)
+    divisor of Zl within ~256 MB.  A divisor keeps every chunk the same
+    shape, and on a whole grid the chunks are the JAX package's
+    (``_chunk_planes``)."""
+    na, two, ny, zl, nx = x.shape
+    chunk = max(1, min(zl, (256 << 20) // (na * two * ny * nx * x.element_size())))
     while zl % chunk:
         chunk -= 1
     return chunk
+
+
+def write_zslabs(items, writer):
+    """Write each (z0, z-chunk (narray, 2, Y, Bz, X) of planes [z0, z0 +
+    Bz)) of items through the writer, in order, one behind dispatch
+    (``stream_to_host``); closes the writer, also when an item raises."""
+    aw = AsyncSlabWriter(writer)
+    try:
+        stream_to_host(items, lambda z0, h: _flush_chunk(aw, z0, h))
+    finally:
+        aw.close()
+    return writer
 
 
 def stream_xspace(x, writer, z0: int = 0):
@@ -220,14 +216,8 @@ def stream_xspace(x, writer, z0: int = 0):
     planes [z0, z0 + Zl) (narray, 2, Y, Zl, X), through the writer in
     z-chunks of ~256 MB, one ahead; closes the writer."""
     chunk = _zslab_chunk(x)
-    aw = AsyncSlabWriter(writer)
-    try:
-        items = ((z0 + dz, x[:, :, :, dz:dz + chunk, :].contiguous())
-                 for dz in range(0, x.shape[3], chunk))
-        stream_to_host(items, lambda z, h: _flush_chunk(aw, z, h, pair=True))
-    finally:
-        aw.close()
-    return writer
+    return write_zslabs(((z0 + dz, x[:, :, :, dz:dz + chunk, :].contiguous())
+                         for dz in range(0, x.shape[3], chunk)), writer)
 
 
 def send_to_rank0(x, axis: int, chunk: int, mesh):
@@ -262,20 +252,12 @@ def gathered_chunks(x, axis: int, chunk: int, mesh):
 def stream_xspace_sharded(x, writer, mesh):
     """Write the x space of a sharded step through rank 0's writer.
 
-    x is this rank's z-slab (narray, 2, Y, Zl, X).  Rank 0 streams its own
-    slab as ``stream_xspace`` does, then each other rank's in rank order (=
-    z order) through the same ``AsyncSlabWriter``; the other ranks send
-    theirs in the same chunks.  ``writer`` is rank 0's (None on the
-    others); closes it.
-    """
+    x is this rank's z-slab (narray, 2, Y, Zl, X).  Rank 0 writes its own
+    slab's chunks, then each other rank's in rank order (= z order), in
+    one ``write_zslabs``; the other ranks send theirs in the same chunks.
+    ``writer`` is rank 0's (None on the others); closes it."""
     chunk = _zslab_chunk(x)
     if mesh.rank != 0:
         send_to_rank0(x, 3, chunk, mesh)
         return None
-    aw = AsyncSlabWriter(writer)
-    try:
-        stream_to_host(gathered_chunks(x, 3, chunk, mesh),
-                       lambda z0, h: _flush_chunk(aw, z0, h, pair=True))
-    finally:
-        aw.close()
-    return writer
+    return write_zslabs(gathered_chunks(x, 3, chunk, mesh), writer)
