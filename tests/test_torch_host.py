@@ -144,28 +144,71 @@ def _small_box(**over) -> dict:
 
 
 #: (the .par keys, f_NL): the small box at its own 512^3, where most n2 lie
-#: past the spline's kmax, and an f_NL box at a small ppd
+#: past the spline's kmax, an f_NL box and a CornerModes box at a small ppd
 CELL_SHAPES = {
     "small_box_512": _small_box(),
     "fnl_64": dict(VARIANTS["fnl"], NP=64**3),
+    "corner_64": dict(ZD_CornerModes=1, NP=64**3),
 }
 
 
 @pytest.mark.parametrize("case", CELL_SHAPES)
 def test_pipeline_tables_bit_equal_at_the_cells_shapes(tmp_path, case):
-    """The model's P(k) table (one spline pass), and the M table built from
-    it, bit for bit the JAX package's ``mode_amplitude_tables``; the model
-    carries M only under f_NL."""
+    """The model's P(k) table (one spline pass) bit for bit the JAX
+    package's ``mode_amplitude_tables`` below the k_cutoff sphere's n2
+    (the JAX package's ``SynthConfig.n2_cutoff``) and exactly 0.0 from it
+    on, where the zero rules zero every mode; whole under f_NL and
+    CornerModes, with the M table built from it.  The model carries M only
+    under f_NL."""
+    from zeldovich_tpu.ops.modes import SynthConfig as JSynthConfig
+
     j, t = _both(_par(tmp_path, **CELL_SHAPES[case]))
-    want_pk, want_M = jpower.mode_amplitude_tables(jpower.PowerSpectrum(j), j)
+    jpk = jpower.PowerSpectrum(j)
+    want_pk, want_M = jpower.mode_amplitude_tables(jpk, j)
     m = Zeldovich(t, device="cpu")
     pk = m.tables.pk_n2.numpy()
-    np.testing.assert_array_equal(pk, want_pk)
-    np.testing.assert_array_equal(power.M_table(m.Pk, t, pk), want_M)
+    assert pk.dtype == want_pk.dtype and pk.shape == want_pk.shape
+    whole = t.f_NL != 0 or t.CornerModes
+    n = len(pk) if whole else JSynthConfig.from_params(j, jpk.fixed_power).n2_cutoff
+    if case == "small_box_512":
+        assert n == 256**2
+    np.testing.assert_array_equal(pk[:n], want_pk[:n])
+    assert not np.signbit(pk[n:]).any() and not pk[n:].any()
+    if whole:
+        np.testing.assert_array_equal(power.M_table(m.Pk, t, pk), want_M)
     if t.f_NL != 0:
         np.testing.assert_array_equal(m.tables.M_n2.numpy(), want_M)
     else:
         assert m.tables.M_n2 is None
+
+
+def _tables_of(m, pk_n2):
+    """``m``'s SynthTables rebuilt on the table ``pk_n2``."""
+    from zeldovich_tpu_torch.ops.modes import SynthTables
+
+    eig = m.tables.eig.numpy() if m.tables.eig is not None else None
+    return SynthTables.build(m.param.seed, m.param.ppd, pk_n2, eig=eig, device="cpu")
+
+
+@pytest.mark.parametrize("field", ["pk_effective", "xspace_half_pair"])
+@pytest.mark.parametrize("plt", [False, True], ids=["plain", "plt"])
+def test_trimmed_table_leaves_the_outputs_bit_equal(tmp_path, plt, field):
+    """The small box's spacing at 64^3: the model on its own table (0 past
+    the k_cutoff sphere) and on the JAX package's whole table give the
+    same ``pk_effective`` and the same x-space fields, bit for bit."""
+    from zeldovich_tpu_torch.ops.modes_real import pk_effective
+
+    over = _small_box(NP=64**3, BoxSize=148.1 / 8, ZD_qPLT=int(plt))
+    j, t = _both(_par(tmp_path, **over))
+    want_pk = jpower.mode_amplitude_tables(jpower.PowerSpectrum(j), j)[0]
+    trimmed, whole = Zeldovich(t, device="cpu"), Zeldovich(t, device="cpu")
+    whole.tables = _tables_of(whole, want_pk)
+    assert not np.array_equal(trimmed.tables.pk_n2.numpy(), want_pk)
+    if field == "pk_effective":
+        got, want = (pk_effective(m.cfg, m.tables, m.dtype) for m in (trimmed, whole))
+    else:
+        got, want = (m.xspace_half_pair() for m in (trimmed, whole))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("case", ["plain", "fnl", "small_box_512"])

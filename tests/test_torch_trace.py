@@ -212,18 +212,25 @@ def test_plt_model_records_setup_spans(tmp_path, name):
 
 
 @pytest.mark.parametrize("ppd, over", [(16, {}), (64, {}),
-                                      (16, dict(ZD_f_NL=30.0, ZD_n_s=0.96, Omega_M=0.3))],
-                         ids=["16", "64", "fnl16"])
+                                      (16, dict(ZD_f_NL=30.0, ZD_n_s=0.96, Omega_M=0.3)),
+                                      (16, dict(ZD_CornerModes=1))],
+                         ids=["16", "64", "fnl16", "corner16"])
 def test_setup_power_counts_one_pass(tmp_path, ppd, over):
-    """``setup.power`` counts the k values through the spline (one pass
-    over the n2 table, 3 (ppd/2)^2 past n2 = 0) and the Romberg sigma
-    integrals (Pk_sigma: the input sigma once, the final sigma once)."""
+    """``setup.power`` counts the k values through the spline (one pass:
+    at k_cutoff 1 the (ppd/2)^2 - 1 n2 in (0, (ppd/2)^2) that the k_cutoff
+    sphere keeps; under f_NL and CornerModes the whole table, 3 (ppd/2)^2
+    past n2 = 0), the entries set to 0 without one (the rest of the
+    3 (ppd/2)^2 + 1) and the Romberg sigma integrals (Pk_sigma: the input
+    sigma once, the final sigma once)."""
     par = _write_par(tmp_path / "a.par", tmp_path / "a", NP=ppd**3, **over)
     with _cpu_profile():
         t0 = time.perf_counter()
         Zeldovich(Parameters.from_file(par), device="cpu")
     (rec,) = [r for r in timers.records(t0) if r["name"] == "setup.power"]
-    assert rec["counts"] == {"spline_points": 3 * (ppd // 2) ** 2, "sigma_integrals": 2}
+    h2 = (ppd // 2) ** 2
+    live = 3 * h2 + 1 if over else h2
+    assert rec["counts"] == {"spline_points": live - 1, "n2_zeroed": 3 * h2 + 1 - live,
+                             "sigma_integrals": 2}
 
 
 def test_profile_holds_writer_thread_ranges(tmp_path):

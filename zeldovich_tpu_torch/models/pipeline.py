@@ -42,7 +42,7 @@ from ..utils.output import (  # noqa: F401 (output_dtype re-exported)
     OutputWriter, output_dtype, setup_output_dir,
 )
 from ..utils.params import Parameters
-from ..utils.power import M_table, PowerSpectrum, power_table
+from ..utils.power import M_table, PowerSpectrum, n2_read, power_table
 from ..utils.timers import span, tracing
 
 
@@ -65,19 +65,23 @@ class Zeldovich:
     """Parameters -> displacement/velocity fields on ``device``."""
 
     def __init__(self, param: Parameters, dtype=torch.float64, device="cuda"):
-        """The set-up tables, each part a span: ``setup.power`` (P(k) and
-        the mode amplitudes; the f_NL M(k) table only where f_NL != 0, the
-        one configuration whose passes read it; counts ``spline_points``
-        and ``sigma_integrals``), ``setup.eigmodes`` (the PLT table read),
-        ``setup.rng_tables`` (``SynthTables.build``)."""
+        """The set-up tables, each part a span: ``setup.power`` (P(k) at
+        the n2 a mode can read, ``n2_read``, 0 past them; the f_NL M(k)
+        table only where f_NL != 0, the one configuration whose passes read
+        it; counts ``spline_points``, ``n2_zeroed`` (the entries set to 0
+        without a spline evaluation) and ``sigma_integrals``),
+        ``setup.eigmodes`` (the PLT table read), ``setup.rng_tables``
+        (``SynthTables.build``)."""
         self.param = param
         self.dtype = dtype
         self.device = torch.device(device)
         with span("setup.power") as counts:
             self.Pk = PowerSpectrum(param)
-            pk_n2 = power_table(self.Pk, param)
+            n2_end = n2_read(param)
+            pk_n2 = power_table(self.Pk, param, n2_end)
             M_n2 = M_table(self.Pk, param, pk_n2) if param.f_NL != 0 else None
             counts.update(spline_points=self.Pk.spline.points,
+                          n2_zeroed=len(pk_n2) - n2_end,
                           sigma_integrals=self.Pk.sigma_integrals)
         self.cfg = SynthConfig.from_params(param, self.Pk.fixed_power)
         eig = None

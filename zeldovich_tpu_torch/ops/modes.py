@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.params import Parameters
+from ..utils.power import n2_cutoff
 from . import pcg, pcg_device
 
 
@@ -56,18 +57,12 @@ class SynthConfig:
         k2_cutoff = (
             param.nyquist * param.nyquist / (param.k_cutoff * param.k_cutoff)
         )
-        fund2 = np.float64(param.fundamental) * np.float64(param.fundamental)
-        n2_cut = int(np.ceil(k2_cutoff / float(fund2)))
-        while n2_cut > 0 and np.float64(n2_cut - 1) * fund2 >= k2_cutoff:
-            n2_cut -= 1
-        while np.float64(n2_cut) * fund2 < k2_cutoff:
-            n2_cut += 1
         return cls(
             ppd=param.ppd,
             fundamental=param.fundamental,
             kmax_int=int(half * (1.0 / param.k_cutoff) + 0.5),
             k2_cutoff=k2_cutoff,
-            n2_cutoff=n2_cut,
+            n2_cutoff=n2_cutoff(param),
             corner_modes=bool(param.CornerModes),
             qonemode=bool(param.qonemode),
             one_mode=tuple(param.one_mode),

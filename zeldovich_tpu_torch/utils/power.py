@@ -18,7 +18,9 @@ device kernels never evaluate the spline: ``mode_amplitude_tables`` bakes
 P(k) (and the f_NL M(k) factor) into flat float64 tables indexed by the
 integer ``n2 = j^2 + l^2 + m^2`` -- one gather per mode on device.  The
 spline runs once over the n2 table (``power_table``); ``M_table`` derives
-M from that same P(k) array.
+M from that same P(k) array.  The model's table evaluates only the n2 a
+mode can read (``n2_read``): past the k_cutoff sphere the zero rules
+zero every mode, so those entries are 0 without a spline evaluation.
 """
 
 from __future__ import annotations
@@ -336,14 +338,48 @@ def _n2_kmag(param: Parameters):
     return n2, np.sqrt(n2) * param.fundamental
 
 
-def power_table(Pk: PowerSpectrum, param: Parameters) -> np.ndarray:
+def n2_cutoff(param: Parameters) -> int:
+    """The k_cutoff sphere in integer n2: the smallest n2 with
+    ``n2 * fundamental^2 >= (nyquist / k_cutoff)^2`` in float64, so that
+    the zero rules' cutoff decision is exact in every compute dtype."""
+    k2_cutoff = param.nyquist * param.nyquist / (param.k_cutoff * param.k_cutoff)
+    fund2 = np.float64(param.fundamental) * np.float64(param.fundamental)
+    n2 = int(np.ceil(k2_cutoff / float(fund2)))
+    while n2 > 0 and np.float64(n2 - 1) * fund2 >= k2_cutoff:
+        n2 -= 1
+    while np.float64(n2) * fund2 < k2_cutoff:
+        n2 += 1
+    return n2
+
+
+def n2_read(param: Parameters) -> int:
+    """How many n2, from 0, a mode's amplitude can read.
+
+    Every n2 (3*(ppd/2)^2 + 1) under CornerModes, where the sphere rule is
+    off, and under f_NL, whose M(k) and full-grid phi pass read past the
+    sphere; else ``n2_cutoff`` (about (ppd/2)^2 / k_cutoff^2, k_cutoff >=
+    1): the zero rules zero every mode with ``n2 >= n2_cutoff``
+    (zeldovich.cpp:349-358).
+    """
+    if param.CornerModes or param.f_NL != 0:
+        return 3 * (param.ppd // 2) ** 2 + 1
+    return n2_cutoff(param)
+
+
+def power_table(Pk: PowerSpectrum, param: Parameters,
+                n2_end: int | None = None) -> np.ndarray:
     """P(k) by integer n2: one spline pass over the table.
 
     Every grid mode has ``|k|^2 = n2 * fundamental^2`` with integer
     ``n2 <= 3*(ppd/2)^2``, so device kernels do one table gather instead of
     a spline search per mode.  A float64 array of length 3*(ppd/2)^2 + 1.
+    With ``n2_end`` (``n2_read``) the pass covers n2 < n2_end alone, each
+    value the whole pass's to the bit, and the entries from n2_end on are 0.
     """
-    return Pk.power_vec(_n2_kmag(param)[1])
+    kmag = _n2_kmag(param)[1]
+    out = np.zeros_like(kmag)
+    out[:n2_end] = Pk.power_vec(kmag[:n2_end])
+    return out
 
 
 def M_table(Pk: PowerSpectrum, param: Parameters, pk: np.ndarray) -> np.ndarray:
