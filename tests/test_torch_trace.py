@@ -220,8 +220,9 @@ def test_setup_power_counts_one_pass(tmp_path, ppd, over):
     at k_cutoff 1 the (ppd/2)^2 - 1 n2 in (0, (ppd/2)^2) that the k_cutoff
     sphere keeps; under f_NL and CornerModes the whole table, 3 (ppd/2)^2
     past n2 = 0), the entries set to 0 without one (the rest of the
-    3 (ppd/2)^2 + 1) and the Romberg sigma integrals (Pk_sigma: the input
-    sigma once, the final sigma once)."""
+    3 (ppd/2)^2 + 1), the Romberg sigma integrals (Pk_sigma: the input
+    sigma once, the final sigma once) and the M(k) table's entries (the
+    whole table under f_NL, 0 without it)."""
     par = _write_par(tmp_path / "a.par", tmp_path / "a", NP=ppd**3, **over)
     with _cpu_profile():
         t0 = time.perf_counter()
@@ -229,8 +230,31 @@ def test_setup_power_counts_one_pass(tmp_path, ppd, over):
     (rec,) = [r for r in timers.records(t0) if r["name"] == "setup.power"]
     h2 = (ppd // 2) ** 2
     live = 3 * h2 + 1 if over else h2
+    m_points = 3 * h2 + 1 if "ZD_f_NL" in over else 0
     assert rec["counts"] == {"spline_points": live - 1, "n2_zeroed": 3 * h2 + 1 - live,
-                             "sigma_integrals": 2}
+                             "sigma_integrals": 2, "m_points": m_points}
+
+
+@pytest.mark.parametrize("plt", [1, 0], ids=["plt", "plain"])
+def test_fnl_step_records_its_spans(tmp_path, plt):
+    """An f_NL step through the model API: one ``fnl.phi_pass`` with its
+    two 3-D transforms, holding the first ``full.synth`` (phi, one array);
+    then the main assembly's ``full.synth`` (four arrays with PLT, two
+    without), each over its y-chunks (one at 16^3)."""
+    par = _write_par(tmp_path / "a.par", tmp_path / "a", ZD_f_NL=30.0, ZD_n_s=0.96,
+                     Omega_M=0.3, ZD_qPLT=plt)
+    m = Zeldovich(Parameters.from_file(par), device="cpu")
+    with _cpu_profile():
+        t0 = time.perf_counter()
+        m.xspace_half_pair()
+    recs = [r for r in timers.records(t0) if r["name"] in ("fnl.phi_pass", "full.synth")]
+    assert [r["name"] for r in recs] == ["full.synth", "fnl.phi_pass", "full.synth"]
+    phi_synth, phi_pass, synth = recs
+    assert phi_pass["counts"] == {"transforms": 2} and phi_pass["parent"] is None
+    assert phi_synth["counts"] == {"arrays": 1, "chunks": 1}
+    assert phi_synth["parent"] == phi_pass["index"]
+    assert synth["counts"] == {"arrays": 4 if plt else 2, "chunks": 1}
+    assert synth["parent"] is None and synth["t0"] >= phi_pass["t1"]
 
 
 def test_profile_holds_writer_thread_ranges(tmp_path):

@@ -69,7 +69,8 @@ class Zeldovich:
         the n2 a mode can read, ``n2_read``, 0 past them; the f_NL M(k)
         table only where f_NL != 0, the one configuration whose passes read
         it; counts ``spline_points``, ``n2_zeroed`` (the entries set to 0
-        without a spline evaluation) and ``sigma_integrals``),
+        without a spline evaluation), ``sigma_integrals`` and ``m_points``
+        (the entries of the M(k) table, 0 without f_NL)),
         ``setup.eigmodes`` (the PLT table read), ``setup.rng_tables``
         (``SynthTables.build``)."""
         self.param = param
@@ -82,7 +83,8 @@ class Zeldovich:
             M_n2 = M_table(self.Pk, param, pk_n2) if param.f_NL != 0 else None
             counts.update(spline_points=self.Pk.spline.points,
                           n2_zeroed=len(pk_n2) - n2_end,
-                          sigma_integrals=self.Pk.sigma_integrals)
+                          sigma_integrals=self.Pk.sigma_integrals,
+                          m_points=0 if M_n2 is None else len(M_n2))
         self.cfg = SynthConfig.from_params(param, self.Pk.fixed_power)
         eig = None
         if param.qPLT:
@@ -187,16 +189,22 @@ class Zeldovich:
 
         The inverse transform is unnormalized, so the round trip's 1/ppd^3
         is folded into the non-linear map (zeldovich.cpp:749-759).  All in
-        place on one full grid; its imaginary plane is the scratch.
+        place on one full grid; its imaginary plane is the scratch.  The
+        span ``fnl.phi_pass`` (count ``transforms``: its 3-D transforms)
+        syncs the device at its close while a profiler runs.
         """
         p = self.param
-        phi = synthesize_full_fast_pair(
-            self.cfg, self.tables, self.dtype, gen_phi=True, pk_eff=self.pk_eff,
-            D_source=self._D_source, plain=plain,
-        )[0]
-        ifft3_pair(phi, out=phi, plain=plain)
-        phi_nl(phi, p.f_NL, 1.0 / p.ppd**3)
-        return fft3_pair(phi, out=phi, plain=plain)
+        with span("fnl.phi_pass", transforms=2):
+            phi = synthesize_full_fast_pair(
+                self.cfg, self.tables, self.dtype, gen_phi=True, pk_eff=self.pk_eff,
+                D_source=self._D_source, plain=plain,
+            )[0]
+            ifft3_pair(phi, out=phi, plain=plain)
+            phi_nl(phi, p.f_NL, 1.0 / p.ppd**3)
+            phi = fft3_pair(phi, out=phi, plain=plain)
+            if tracing() and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return phi
 
     def kspace_pair(self, plain: bool = False):
         """Packed k-space arrays as real pairs: (narray, 2, Y, Z, X)."""

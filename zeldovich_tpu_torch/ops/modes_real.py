@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.timers import span, tracing
 from . import pcg_device
 from .modes import SynthConfig, SynthTables, hermitian_source, zero_rules
 
@@ -382,7 +383,11 @@ def synthesize_full_fast_pair(cfg: SynthConfig, tables: SynthTables, dtype,
     The fields and packings are built one y-chunk at a time and written
     straight into the output, one packed array after another, so no
     full-grid field temporaries exist.  ``plain=True`` takes B4's plain
-    version on any device.
+    version on any device.  The assembly (the y-chunks' torch ops) is the
+    span ``full.synth`` (counts ``arrays``, the output's, and ``chunks``,
+    its y-chunks); B4's draw and the PLT planes come before it opens.
+    While a profiler runs the span syncs the device when it opens and at
+    its close, so it holds the assembly's device work alone.
     """
     from .boxmuller import halfspace_boxmuller, halfspace_boxmuller_plain
 
@@ -403,26 +408,32 @@ def synthesize_full_fast_pair(cfg: SynthConfig, tables: SynthTables, dtype,
     narray = 1 if gen_phi else cfg.narray
     out = torch.empty((narray, 2, ppd, ppd, ppd), dtype=dtype, device=dev)
     cy = y_chunk(half, ppd, 1 << 22)
-    for y0 in range(0, half, cy):
-        y1 = y0 + cy
-        ky, kz, kx, n2 = _wavenumbers(y0, y1, ppd, dev)
-        if use_phi:
-            M = tables.M_n2[n2].to(dtype)
-            D = (phi_pair[0, y0:y1] * M, phi_pair[1, y0:y1] * M)
-            if y0 == 0:
-                D[0][0, 0, 0] = D[1][0, 0, 0] = 0.0
-        elif D_source is not None:
-            zero = zero_rules(kx, ky, kz, n2, cfg)
-            D = tuple(torch.where(zero, 0.0, D_source[j, y0:y1]) for j in range(2))
-        else:
-            D = (Dhalf[0][y0:y1], Dhalf[1][y0:y1])
-        if gen_phi:
-            assemble_pair(out[0], phi_of_D(D, n2, tables), None, y0)
-            continue
-        coefs = (None if cfg.just_density else _coefs_of_planes(
-            cfg, y0, y1, dtype, dev, plt_coefs if plt else None))
-        for a, P, Q in packed_fields(D, coefs, plt, cfg.just_density):
-            assemble_pair(out[a], P, Q, y0)
+    sync = tracing() and dev.type == "cuda"
+    if sync:
+        torch.cuda.synchronize(dev)
+    with span("full.synth", arrays=narray, chunks=half // cy):
+        for y0 in range(0, half, cy):
+            y1 = y0 + cy
+            ky, kz, kx, n2 = _wavenumbers(y0, y1, ppd, dev)
+            if use_phi:
+                M = tables.M_n2[n2].to(dtype)
+                D = (phi_pair[0, y0:y1] * M, phi_pair[1, y0:y1] * M)
+                if y0 == 0:
+                    D[0][0, 0, 0] = D[1][0, 0, 0] = 0.0
+            elif D_source is not None:
+                zero = zero_rules(kx, ky, kz, n2, cfg)
+                D = tuple(torch.where(zero, 0.0, D_source[j, y0:y1]) for j in range(2))
+            else:
+                D = (Dhalf[0][y0:y1], Dhalf[1][y0:y1])
+            if gen_phi:
+                assemble_pair(out[0], phi_of_D(D, n2, tables), None, y0)
+                continue
+            coefs = (None if cfg.just_density else _coefs_of_planes(
+                cfg, y0, y1, dtype, dev, plt_coefs if plt else None))
+            for a, P, Q in packed_fields(D, coefs, plt, cfg.just_density):
+                assemble_pair(out[a], P, Q, y0)
+        if sync:
+            torch.cuda.synchronize(dev)
     return out
 
 
