@@ -196,19 +196,56 @@ def test_traced_run_writes_the_same_bytes(ooc_run):
     assert len(traced) == 8 and traced == untraced
 
 
-@pytest.mark.parametrize("name", ["setup.power", "setup.eigmodes", "setup.rng_tables",
-                                  "static.plt_coefs"])
+#: a PLT model's set-up spans: (thread, parent span's name) of each
+SETUP_SPANS = {
+    "setup.power": ("MainThread", None),
+    "setup.eigmodes": ("zt-eigmodes", None),
+    "setup.rng_tables": ("MainThread", None),
+    "setup.eig_wait": ("MainThread", "setup.rng_tables"),
+    "static.plt_coefs": ("MainThread", None),
+}
+
+
+@pytest.mark.parametrize("name", list(SETUP_SPANS))
 def test_plt_model_records_setup_spans(tmp_path, name):
     """A PLT model's set-up tables, split three ways, and its coefficient
-    planes, each a span of its own on the main thread."""
+    planes, each a span of its own on the main thread; the table read on
+    its worker thread (``bytes``: the 128^3 table's payload), the wait for
+    it inside ``setup.rng_tables``."""
     par = _write_par(tmp_path / "a.par", tmp_path / "a", ZD_qPLT=1)
     with _cpu_profile():
         t0 = time.perf_counter()
         m = Zeldovich(Parameters.from_file(par), device="cpu")
         _ = m.plt_coefs
-    recs = [r for r in timers.records(t0) if r["name"] == name]
-    assert len(recs) == 1 and recs[0]["thread"] == "MainThread"
-    assert recs[0]["parent"] is None
+    recs = timers.records(t0)
+    found = [r for r in recs if r["name"] == name]
+    thread, parent = SETUP_SPANS[name]
+    assert len(found) == 1 and found[0]["thread"] == thread
+    by_index = {r["index"]: r for r in recs}
+    assert (found[0]["parent"] if parent is None
+            else by_index[found[0]["parent"]]["name"]) == parent
+    if name == "setup.eigmodes":
+        assert found[0]["counts"] == {"bytes": 128 * 128 * 65 * 4 * 8}
+
+
+@pytest.mark.parametrize("plt", [1, 0], ids=["plt", "plain"])
+def test_table_read_takes_the_open_span_as_parent(tmp_path, plt):
+    """Made inside an open span, a PLT model's ``setup.eigmodes`` takes it
+    as parent; a model without PLT records neither the read nor the
+    wait."""
+    par = _write_par(tmp_path / "a.par", tmp_path / "a", ZD_qPLT=plt)
+    with _cpu_profile():
+        t0 = time.perf_counter()
+        with span("test.outer"):
+            outer = timers.current()
+            Zeldovich(Parameters.from_file(par), device="cpu")
+    recs = [r for r in timers.records(t0) if r["name"] in ("setup.eigmodes", "setup.eig_wait")]
+    if not plt:
+        assert recs == []
+        return
+    (read,) = [r for r in recs if r["name"] == "setup.eigmodes"]
+    assert read["parent"] == outer and read["thread"] == "zt-eigmodes"
+    assert [r["thread"] for r in recs if r["name"] == "setup.eig_wait"] == ["MainThread"]
 
 
 @pytest.mark.parametrize("ppd, over", [(16, {}), (64, {}),
@@ -276,8 +313,10 @@ CELL_METRICS = {
                       "copy_wait_share.file", "combine_share.file",
                       "writer_wait_share.file", "write_MBps.file"],
     "abacus_small_plt.realizations": ["setup_power_ms.mem", "setup_rng_ms.mem",
-                                      "setup_eig_ms.mem", "static_plt_ms.mem"],
-    "abacus_base_plt4.sharded_realizations": ["exchange_ms.mem", "static_plt_ms.mem"],
+                                      "setup_eig_ms.mem", "static_plt_ms.mem",
+                                      "setup_eig_wait_ms.mem"],
+    "abacus_base_plt4.sharded_realizations": ["exchange_ms.mem", "static_plt_ms.mem",
+                                              "setup_eig_wait_ms.mem"],
 }
 
 

@@ -71,30 +71,39 @@ class Zeldovich:
         it; counts ``spline_points``, ``n2_zeroed`` (the entries set to 0
         without a spline evaluation), ``sigma_integrals`` and ``m_points``
         (the entries of the M(k) table, 0 without f_NL)),
-        ``setup.eigmodes`` (the PLT table read), ``setup.rng_tables``
-        (``SynthTables.build``)."""
+        ``setup.rng_tables`` (``SynthTables.build``).  With PLT the table
+        is read first, on a worker thread (``plt.TableRead``: its span
+        ``setup.eigmodes``, count ``bytes``), beside P(k) and the host
+        pcg64 tables, and joined where ``SynthTables.build`` needs it (the
+        span ``setup.eig_wait``, inside ``setup.rng_tables``); the worker
+        has ended whenever this returns or raises."""
         self.param = param
         self.dtype = dtype
         self.device = torch.device(device)
-        with span("setup.power") as counts:
-            self.Pk = PowerSpectrum(param)
-            n2_end = n2_read(param)
-            pk_n2 = power_table(self.Pk, param, n2_end)
-            M_n2 = M_table(self.Pk, param, pk_n2) if param.f_NL != 0 else None
-            counts.update(spline_points=self.Pk.spline.points,
-                          n2_zeroed=len(pk_n2) - n2_end,
-                          sigma_integrals=self.Pk.sigma_integrals,
-                          m_points=0 if M_n2 is None else len(M_n2))
-        self.cfg = SynthConfig.from_params(param, self.Pk.fixed_power)
         eig = None
         if param.qPLT:
-            print("Using PLT eigenmodes.", file=sys.stderr)
-            with span("setup.eigmodes"):
-                eig = plt_ops.load_eigmodes(param.resolve_path(param.PLT_filename))
-        with span("setup.rng_tables"):
-            self.tables = SynthTables.build(
-                param.seed, param.ppd, pk_n2, M_n2=M_n2, eig=eig, device=self.device
-            )
+            eig = plt_ops.TableRead(param.resolve_path(param.PLT_filename), self.device)
+        try:
+            with span("setup.power") as counts:
+                self.Pk = PowerSpectrum(param)
+                n2_end = n2_read(param)
+                pk_n2 = power_table(self.Pk, param, n2_end)
+                M_n2 = M_table(self.Pk, param, pk_n2) if param.f_NL != 0 else None
+                counts.update(spline_points=self.Pk.spline.points,
+                              n2_zeroed=len(pk_n2) - n2_end,
+                              sigma_integrals=self.Pk.sigma_integrals,
+                              m_points=0 if M_n2 is None else len(M_n2))
+            self.cfg = SynthConfig.from_params(param, self.Pk.fixed_power)
+            if param.qPLT:
+                print("Using PLT eigenmodes.", file=sys.stderr)
+            with span("setup.rng_tables"):
+                self.tables = SynthTables.build(
+                    param.seed, param.ppd, pk_n2, M_n2=M_n2,
+                    eig=None if eig is None else eig.join, device=self.device
+                )
+        finally:
+            if eig is not None:
+                eig.close()
         self._D_source = None
         if param.version == 1:
             # the legacy MT19937 stream, generated on the host

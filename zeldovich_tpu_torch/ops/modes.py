@@ -158,24 +158,32 @@ class SynthTables:
     @classmethod
     def build(cls, seed: int, ppd: int, pk_n2: np.ndarray, M_n2=None, eig=None,
               device="cuda") -> "SynthTables":
-        """Host pcg64 tables (ops/pcg.py) + the (z, x) compose on device."""
+        """Host pcg64 tables (ops/pcg.py) + the (z, x) compose on device.
+
+        ``eig``: the PLT table, an array or a tensor on ``device``, or a
+        callable that returns one (``plt.TableRead.join``), called once
+        the host tables are built."""
         mz, cz = pcg.prebump_axis_tables(
             *pcg.axis_affine_tables(ppd, 2 * pcg.MAX_PPD)
         )
         mx, cx = pcg.axis_affine_tables(ppd, 2)
+        planes = pcg.plane_state_table(seed, ppd)
         L = lambda a: pcg_device.limbs(a, device)
         mzt, czt, mxt, cxt = L(mz), L(cz), L(mx), L(cx)
         mzx, czx = pcg_device.compose_affine(
             tuple(a[:, None] for a in mzt), tuple(a[:, None] for a in czt),
             tuple(a[None, :] for a in mxt), tuple(a[None, :] for a in cxt),
         )
+        if callable(eig):
+            eig = eig()
+        if eig is not None and not isinstance(eig, torch.Tensor):
+            eig = torch.tensor(np.asarray(eig, np.float64), device=device)
         return cls(
-            planes=L(pcg.plane_state_table(seed, ppd)),
+            planes=L(planes),
             mz=mzt, cz=czt, mx=mxt, cx=cxt,
             mzx=mzx, czx=czx,
             pk_n2=torch.tensor(np.asarray(pk_n2, np.float64), device=device),
-            eig=None if eig is None else torch.tensor(
-                np.asarray(eig, np.float64), device=device),
+            eig=eig,
             M_n2=None if M_n2 is None else torch.tensor(
                 np.asarray(M_n2, np.float64), device=device),
         )

@@ -6,30 +6,118 @@ vectorized gathers, with the JAX package's order of evaluation so float32
 results agree to a few ulp and float64 results to rounding.  Tables come
 from the reference's ``eigmodes128`` or from
 ``ops/lattice.py::generate_eigmodes_table`` at any size.
+
+``TableRead`` reads a table on a worker thread, into pinned memory and on
+to the card in one copy, while the thread that made it does other work
+(``Zeldovich.__init__`` builds P(k) and the pcg64 tables meanwhile).
 """
 
 from __future__ import annotations
 
-from pathlib import Path
+import os
+import threading
 
 import numpy as np
 import torch
 
+from ..utils.timers import adopt, current, span
+
+
+def read_eigmodes(path, pin: bool = False) -> torch.Tensor:
+    """Read an eigenmode table -> float64 tensor (ppd_e, ppd_e, ppd_e//2+1, 4)
+    on the host (in pinned memory where ``pin``): the ``<i4`` header, then
+    the ``<f8`` payload read straight into the tensor's storage."""
+    with open(path, "rb", buffering=0) as fp:
+        head = fp.read(4)
+        size = os.fstat(fp.fileno()).st_size
+        ppd_e = int(np.frombuffer(head, dtype="<i4")[0])
+        nelem = ppd_e * ppd_e * (ppd_e // 2 + 1) * 4
+        expect = 4 + nelem * 8
+        if size == expect:
+            table = torch.empty((ppd_e, ppd_e, ppd_e // 2 + 1, 4), dtype=torch.float64,
+                                pin_memory=pin)
+            view = memoryview(table.numpy().reshape(-1).view(np.uint8))
+            got = 0
+            while got < len(view) and (n := fp.readinto(view[got:])):
+                got += n
+            size = 4 + got
+    if size != expect:
+        raise ValueError(
+            f"eigenmode file {path}: size {size} != expected {expect} "
+            f"for ppd {ppd_e}"
+        )
+    return table
+
 
 def load_eigmodes(path) -> np.ndarray:
     """Read an eigenmode table -> float64 array (ppd_e, ppd_e, ppd_e//2+1, 4)."""
-    raw = Path(path).read_bytes()
-    ppd_e = int(np.frombuffer(raw[:4], dtype="<i4")[0])
-    nelem = ppd_e * ppd_e * (ppd_e // 2 + 1) * 4
-    expect = 4 + nelem * 8
-    if len(raw) != expect:
-        raise ValueError(
-            f"eigenmode file {path}: size {len(raw)} != expected {expect} "
-            f"for ppd {ppd_e}"
-        )
-    return np.frombuffer(raw[4:], dtype="<f8").reshape(
-        ppd_e, ppd_e, ppd_e // 2 + 1, 4
-    )
+    return read_eigmodes(path).numpy()
+
+
+class TableRead:
+    """``read_eigmodes(path)`` on a worker thread, sent on to ``device``.
+
+    On a card the table is read into pinned memory and sent with one
+    non-blocking copy on a stream of the worker's, which then waits for
+    the copy; elsewhere the host tensor is the table.  The worker's span
+    ``setup.eigmodes`` (count ``bytes``, the payload) takes as parent the
+    span open where the read was made.  ``join()`` waits for the worker
+    in the span ``setup.eig_wait``, makes the caller's current stream wait
+    for the copy, returns the table and raises the worker's error
+    unchanged; ``close()`` only waits for the worker (for a caller that
+    failed before it joined).
+    """
+
+    def __init__(self, path, device):
+        device = torch.device(device)
+        # a new thread's current card is card 0, not this thread's
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self._device = device
+        self._table = self._event = self._error = None
+        # the stream that will read the table: its memory is allocated for it
+        stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        self._thread = threading.Thread(
+            target=self._run, args=(path, stream, current()), daemon=True,
+            name="zt-eigmodes")
+        self._thread.start()
+
+    def _run(self, path, stream, parent):
+        adopt(parent)
+        try:
+            with span("setup.eigmodes") as counts:
+                if stream is None:
+                    self._table = read_eigmodes(path).to(self._device)
+                else:
+                    with torch.cuda.device(self._device):
+                        self._send(read_eigmodes(path, pin=True), stream)
+                counts["bytes"] = self._table.nbytes
+        except BaseException as e:  # noqa: BLE001 - re-raised by join()
+            self._error = e
+
+    def _send(self, host, stream):
+        with torch.cuda.stream(stream):
+            table = torch.empty(host.shape, dtype=host.dtype, device=self._device)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(stream)  # after the work that used the block before
+        with torch.cuda.stream(side):
+            table.copy_(host, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(side)
+        event.synchronize()
+        self._table, self._event = table, event
+
+    def join(self) -> torch.Tensor:
+        with span("setup.eig_wait"):
+            self._thread.join()
+        if self._error is not None:
+            raise self._error
+        if self._event is not None:
+            torch.cuda.current_stream(self._device).wait_event(self._event)
+        return self._table
+
+    def close(self):
+        self._thread.join()
 
 
 def save_eigmodes(path, table):
