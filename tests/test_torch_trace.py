@@ -317,13 +317,21 @@ CELL_METRICS = {
                                       "setup_eig_wait_ms.mem"],
     "abacus_base_plt4.sharded_realizations": ["exchange_ms.mem", "static_plt_ms.mem",
                                               "setup_eig_wait_ms.mem"],
+    "odd576.realizations": ["mmfft_ms.mem", "setup_power_ms.mem", "setup_rng_ms.mem",
+                            "setup_eig_ms.mem", "static_plt_ms.mem",
+                            "setup_eig_wait_ms.mem"],
 }
+
+#: the rehearsal's ppd of a cell where not 16: the 576^3 cell at a ppd that
+#: is not a power of two either, so that it takes the separate half route
+#: (at 16 it would take B1/B2)
+REHEARSAL_PPD = {"odd576.realizations": 24}
 
 
 @pytest.fixture(scope="module")
 def rehearsals(tmp_path_factory):
-    """Each cell's traced CPU rehearsal at ppd 16 (a closure: run once a
-    cell)."""
+    """Each cell's traced CPU rehearsal at its ppd (``REHEARSAL_PPD``, else
+    16; a closure: run once a cell)."""
     sys.path.insert(0, str(BENCH))
     import rehearse
     import run
@@ -333,7 +341,7 @@ def rehearsals(tmp_path_factory):
     def result(cell):
         if cell not in done:
             done[cell] = run.measure(cell, 2**31 + 2**30 + 5, 0.3, True, "cpu",
-                                     resize=rehearse.shrink(16),
+                                     resize=rehearse.shrink(REHEARSAL_PPD.get(cell, 16)),
                                      run_dir=tmp_path_factory.mktemp("bench"))
         return done[cell]
     return result

@@ -29,16 +29,27 @@ before anything is launched:
 ``plain=True`` runs the plain versions (``torch.fft``) on any device at
 any n: the reference both routes are held against.  ``zx_dft``, ``y_dft``
 and ``c2r_y`` themselves still raise for lengths the kernels do not take.
+
+Each matrix-product pass is a span (``utils/timers.py``): ``mmfft.zx``
+(``zx_mm``), ``mmfft.y`` (``y_mm``) and ``mmfft.c2r`` (``c2r_y_pair``),
+named after this module and not after the products, with the counts ``n``
+(the transform length), ``elems`` (the complex elements of the operand:
+half its real numbers) and ``chunks`` (its chunk loop's passes).  While a
+profiler runs on a CUDA device a span syncs the device when it opens and
+at its close, so it holds its pass's device work alone; with none running
+nothing waits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from ..utils.timers import span, tracing
 from .c2r import c2r_y, c2r_y_plain
 from .fft import y_dft, y_dft_plain, zx_dft, zx_dft_plain
 from .synth import fft_kernels_take
@@ -178,6 +189,19 @@ def cfft_axis(re, im, axis: int, sign: int):
     return r.reshape(shape), i.reshape(shape)
 
 
+@contextlib.contextmanager
+def _pass_span(name: str, device, **counts):
+    """The span ``name`` of one matrix-product pass, the device synced at
+    its open and close while a profiler runs (the module's docstring)."""
+    sync = tracing() and device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize(device)
+    with span(name, **counts):
+        yield
+        if sync:
+            torch.cuda.synchronize(device)
+
+
 def _blocks(pair, out, what: str):
     """(pair, dst) as (batch, 2, A, B, C) views; dst is out (which may be
     pair) or a new tensor."""
@@ -195,16 +219,19 @@ def zx_mm(pair, sign: int, out=None):
     """The matrix-product DFT over (z, x) of (..., 2, K, Z, X) pairs, a few
     K planes at a time; ``out`` may be pair (in place)."""
     src, dst, out = _blocks(pair, out, "zx_mm")
-    _, _, K, Z, X = src.shape
+    nb, _, K, Z, X = src.shape
     kc = max(1, _CHUNK // (Z * X))
-    for b in range(src.shape[0]):
-        for k0 in range(0, K, kc):
-            ks = slice(k0, k0 + kc)
-            re, im = _dft_mid(src[b, 0, ks], src[b, 1, ks], sign)  # z
-            nk = re.shape[0]
-            re, im = _dft_mid(re.reshape(nk * Z, X, 1), im.reshape(nk * Z, X, 1), sign)  # x
-            dst[b, 0, ks] = re.view(nk, Z, X)
-            dst[b, 1, ks] = im.view(nk, Z, X)
+    with _pass_span("mmfft.zx", src.device, n=X, elems=src.numel() // 2,
+                    chunks=nb * -(-K // kc)):
+        for b in range(nb):
+            for k0 in range(0, K, kc):
+                ks = slice(k0, k0 + kc)
+                re, im = _dft_mid(src[b, 0, ks], src[b, 1, ks], sign)  # z
+                nk = re.shape[0]
+                re, im = _dft_mid(re.reshape(nk * Z, X, 1), im.reshape(nk * Z, X, 1),
+                                  sign)  # x
+                dst[b, 0, ks] = re.view(nk, Z, X)
+                dst[b, 1, ks] = im.view(nk, Z, X)
     return out
 
 
@@ -212,15 +239,17 @@ def y_mm(pair, sign: int, out=None):
     """The matrix-product DFT along axis -3 of (..., 2, Y, Bz, X) pairs, a
     full grid or a z-slab, a few z rows at a time; ``out`` may be pair."""
     src, dst, out = _blocks(pair, out, "y_mm")
-    _, _, Y, B, X = src.shape
+    nb, _, Y, B, X = src.shape
     bc = max(1, _CHUNK // (Y * X))
-    for b in range(src.shape[0]):
-        for z0 in range(0, B, bc):
-            zs = slice(z0, z0 + bc)
-            re, im = (src[b, c, :, zs].reshape(1, Y, -1) for c in (0, 1))
-            re, im = _dft_mid(re, im, sign)
-            dst[b, 0, :, zs] = re.view(Y, -1, X)
-            dst[b, 1, :, zs] = im.view(Y, -1, X)
+    with _pass_span("mmfft.y", src.device, n=Y, elems=src.numel() // 2,
+                    chunks=nb * -(-B // bc)):
+        for b in range(nb):
+            for z0 in range(0, B, bc):
+                zs = slice(z0, z0 + bc)
+                re, im = (src[b, c, :, zs].reshape(1, Y, -1) for c in (0, 1))
+                re, im = _dft_mid(re, im, sign)
+                dst[b, 0, :, zs] = re.view(Y, -1, X)
+                dst[b, 1, :, zs] = im.view(Y, -1, X)
     return out
 
 
@@ -249,23 +278,27 @@ def c2r_y_pair(spm, out=None):
     o = out.view(-1, 2, n, Z * X)
     rows = max(1, _CHUNK // (n * X))
     cs = _c2r_mats(n, spm.dtype, spm.device) if _dense_takes(n, spm.dtype) else None
-    for a in range(s.shape[0]):
-        for z0 in range(0, Z, rows):
-            c = slice(z0 * X, min(Z, z0 + rows) * X)
-            (spr, spi), (smr, smi) = [[s[a, pm, r, :, c] for r in (0, 1)] for pm in (0, 1)]
-            if cs is None:
-                re = torch.cat([spr, smr[1:-1].flip(0)]).unsqueeze(0)
-                im = torch.cat([spi, smi[1:-1].flip(0).neg()]).unsqueeze(0)
-                re, im = _dft_mid(re, im, +1)
-                o[a, 0, :, c], o[a, 1, :, c] = re[0], im[0]
-                continue
-            two = torch.empty((2 * K, spr.shape[1]), dtype=spm.dtype, device=spm.device)
-            torch.add(spr, smr, out=two[:K])  # 2 Re D~
-            torch.add(spi, smi, out=two[K:])  # 2 Im D~
-            o[a, 0, :, c] = torch.matmul(cs, two)
-            torch.sub(spi, smi, out=two[:K])  # 2 Re F~
-            torch.sub(smr, spr, out=two[K:])  # 2 Im F~
-            o[a, 1, :, c] = torch.matmul(cs, two)
+    with _pass_span("mmfft.c2r", spm.device, n=n, elems=spm.numel() // 2,
+                    chunks=s.shape[0] * -(-Z // rows)):
+        for a in range(s.shape[0]):
+            for z0 in range(0, Z, rows):
+                c = slice(z0 * X, min(Z, z0 + rows) * X)
+                (spr, spi), (smr, smi) = [[s[a, pm, r, :, c] for r in (0, 1)]
+                                          for pm in (0, 1)]
+                if cs is None:
+                    re = torch.cat([spr, smr[1:-1].flip(0)]).unsqueeze(0)
+                    im = torch.cat([spi, smi[1:-1].flip(0).neg()]).unsqueeze(0)
+                    re, im = _dft_mid(re, im, +1)
+                    o[a, 0, :, c], o[a, 1, :, c] = re[0], im[0]
+                    continue
+                two = torch.empty((2 * K, spr.shape[1]), dtype=spm.dtype,
+                                  device=spm.device)
+                torch.add(spr, smr, out=two[:K])  # 2 Re D~
+                torch.add(spi, smi, out=two[K:])  # 2 Im D~
+                o[a, 0, :, c] = torch.matmul(cs, two)
+                torch.sub(spi, smi, out=two[:K])  # 2 Re F~
+                torch.sub(smr, spr, out=two[K:])  # 2 Im F~
+                o[a, 1, :, c] = torch.matmul(cs, two)
     return out
 
 

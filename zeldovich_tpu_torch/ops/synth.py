@@ -72,7 +72,7 @@ def check_kernel_size(n: int):
         raise ValueError(
             f"ppd {n}: the CUDA FFT kernels take power-of-two ppd in [16, 2048]; "
             "other sizes take the matrix-product route of ops/mmfft.py "
-            "(kernels for them: ROADMAP A12b)"
+            "(kernels for them: ROADMAP D6)"
         )
 
 
